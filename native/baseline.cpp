@@ -11,7 +11,7 @@
 // predict (pose sampling + landmark cov growth), birth from unused
 // measurements, batched-per-particle EKF map update with the nM x nZ weight
 // table, importance weighting (eval points, intensity products, subset-sum
-// RFS likelihood — the same exact algorithm the TPU build uses), O(M^2)
+// RFS likelihood — the same exact algorithm the JAX filter uses), O(M^2)
 // greedy merge, prune, ESS-gated systematic resampling with deep map copies.
 //
 // Output: one JSON line {"timesteps_per_sec": X}.
@@ -120,7 +120,7 @@ int main(int argc, char** argv) {
     if ((int)zs[k].size() > ZCAP) zs[k].resize(ZCAP);
   }
 
-  // optional: dump the generated sim data so the TPU filter can run on
+  // optional: dump the generated sim data so the JAX filter can run on
   // IDENTICAL inputs (scripts/sim_accuracy_check.py) — isolates filter
   // quality from data-generation RNG differences
   if (argc > 1 && strcmp(argv[1], "--dump") == 0 && argc > 2) {

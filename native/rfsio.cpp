@@ -1,9 +1,9 @@
-// rfsio — native IO runtime for the TPU RFS-SLAM framework.
+// rfsio — native IO runtime for the rfs_slam_tpu framework.
 //
 // The reference library's logging/ingest tier is C++ (fprintf/fscanf loops in
 // the apps, e.g. rbphdslam2dSim.cpp:369-441 writers and
 // rbphdslam_VictoriaPark.cpp:199-324 dataset readers).  This module provides
-// the same native-performance tier for the TPU build: reference-format .dat
+// the same native-performance tier for this package: reference-format .dat
 // writers (the Python fallback formats ~600k rows per sim run at interpreter
 // speed) and a bulk whitespace-delimited text parser for dataset ingest.
 // Bound to Python via ctypes (see rfs_slam_tpu/io/native.py).

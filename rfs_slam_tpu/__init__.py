@@ -1,6 +1,6 @@
-"""rfs_slam_tpu — a TPU-native Random-Finite-Set SLAM engine.
+"""rfs_slam_tpu — a Random-Finite-Set SLAM engine in JAX.
 
-A brand-new JAX/XLA/Pallas implementation of the capabilities of the
+A JAX/XLA implementation of the capabilities of the
 kykleung/RFS-SLAM C++ library (RB-PHD-SLAM, FastSLAM / MH-FastSLAM, OSPA/COLA
 evaluation, Hungarian / Murty / JCBB data association), redesigned as
 fixed-shape, masked, structure-of-arrays array programs:

@@ -1,7 +1,8 @@
-"""Shared chunked-scan driver for the Victoria Park apps.
+"""Shared scan driver of the apps.
 
-Splits a whole-run ``lax.scan`` over lidar frames into fixed-size chunks with
-a host round-trip between chunks: after each chunk the filter state is
+Runs a whole-run ``lax.scan`` in one dispatch, or, when checkpointing is
+asked for, in fixed-size chunks with a host round-trip between chunks:
+after each chunk the filter state is
 snapshotted (utils/checkpoint.py) and the chunk's per-frame outputs are
 persisted, so an interrupted run resumes bit-identically (chunking does not
 change the math — the RNG key lives in the filter state).  The reference has
@@ -13,12 +14,28 @@ from __future__ import annotations
 
 import os
 import time
+from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
 from rfs_slam_tpu.utils import checkpoint
+
+
+class RunSummary(NamedTuple):
+    """What a 2-D sim app's ``main()`` returns."""
+
+    steps: int
+    wall_s: float             # including compilation
+    median_pose_err_m: float  # best particle, steps >= 150
+    finite: bool              # every logged float output is finite
+
+
+def all_finite(outs) -> bool:
+    """True when every floating-point array in ``outs`` is finite."""
+    return all(bool(np.isfinite(o).all()) for o in outs
+               if np.issubdtype(np.asarray(o).dtype, np.floating))
 
 
 def chunked_scan(scan_all, state, inputs_np, ckpt_dir: str | None = None,

@@ -1,6 +1,6 @@
 """analysis2dSim — post-hoc error analysis of a 2-D sim log directory.
 
-TPU-native equivalent of the reference analysis executable
+Equivalent of the reference analysis executable
 (analysis2dSim.cpp:46-430): reads the reference-format ``.dat`` logs
 (ours or the reference's own) and writes
 

@@ -1,6 +1,6 @@
 """fastslam_VictoriaPark — FastSLAM / MH-FastSLAM on the Victoria Park dataset.
 
-TPU-native equivalent of the reference executable
+Equivalent of the reference executable
 (fastslam_VictoriaPark.cpp:61-874): FastSLAM<Ackerman2d, StaticProcessModel
 <Landmark3d>, MeasurementModel_VictoriaPark, KalmanFilter_VictoriaPark>
 (fastslam_VictoriaPark.cpp:67-70).  Reads the reference XML config UNCHANGED
@@ -13,8 +13,10 @@ logs.
 Usage::
 
     python -m rfs_slam_tpu.apps.fastslam_victoriapark \
-        --cfg /root/reference/cfg/fastslam_VictoriaPark.xml \
-        --data /root/reference/data/VictoriaPark [--messages N] [--logdir DIR]
+        --data <VictoriaPark dataset dir> [--cfg XML] [--messages N] \
+        [--logdir DIR]
+
+The default config is the repository's cfg/fastslam_VictoriaPark.xml.
 """
 
 from __future__ import annotations
@@ -23,10 +25,8 @@ import argparse
 import time
 
 from rfs_slam_tpu.utils import cache
-from rfs_slam_tpu.utils.warmup import warm_transfers
 
 cache.enable()
-warm_transfers()
 
 import jax
 import jax.numpy as jnp
@@ -36,7 +36,7 @@ from rfs_slam_tpu.filters.fastslam import FastSLAMConfig, FastSLAMFilter
 from rfs_slam_tpu.apps import _vp_common
 from rfs_slam_tpu.io import logs
 from rfs_slam_tpu.io import victoria_park as vp_io
-from rfs_slam_tpu.io.xmlconfig import XmlConfig
+from rfs_slam_tpu.io.xmlconfig import XmlConfig, default_cfg
 from rfs_slam_tpu.models.motion import Ackerman2D, StaticLandmark
 from rfs_slam_tpu.models.victoria_park import VictoriaPark, fov_area_clutter
 from rfs_slam_tpu.ops.ekf import InnovationGates
@@ -215,8 +215,9 @@ def run(filt: FastSLAMFilter, input_cov, frames: vp_io.VPFrames,
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--cfg", required=True)
-    ap.add_argument("--data", default="/root/reference/data/VictoriaPark")
+    ap.add_argument("--cfg", default=default_cfg("fastslam_VictoriaPark.xml"))
+    ap.add_argument("--data", required=True,
+                    help="Victoria Park dataset directory (reference format)")
     ap.add_argument("--messages", type=int, default=None,
                     help="process only the first N sensor messages")
     ap.add_argument("--logdir", default=None)

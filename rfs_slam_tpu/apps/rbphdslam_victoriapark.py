@@ -1,8 +1,8 @@
 """rbphdslam_VictoriaPark — RB-PHD SLAM on the Victoria Park dataset.
 
-TPU-native equivalent of the reference executable
-(rbphdslam_VictoriaPark.cpp): reads the reference XML config UNCHANGED,
-bucketes the sensor-manager event stream into fixed-shape lidar frames
+Equivalent of the reference executable (rbphdslam_VictoriaPark.cpp): reads
+a reference-format XML config (default: the repository's
+cfg/rbphdslam_VictoriaPark.xml), buckets the sensor-manager event stream into fixed-shape lidar frames
 (io/victoria_park.py), runs the full filter as a device scan over frames
 (with an inner scan over the frame's predict sub-steps), and writes
 reference-format logs (particlePose.dat, landmarkEst.dat, trajectory.dat).
@@ -10,8 +10,8 @@ reference-format logs (particlePose.dat, landmarkEst.dat, trajectory.dat).
 Usage::
 
     python -m rfs_slam_tpu.apps.rbphdslam_victoriapark \
-        --cfg /root/reference/cfg/rbphdslam_VictoriaPark.xml \
-        --data /root/reference/data/VictoriaPark [--messages N] [--logdir DIR]
+        --data <VictoriaPark dataset dir> [--cfg XML] [--messages N] \
+        [--logdir DIR]
 """
 
 from __future__ import annotations
@@ -21,10 +21,8 @@ import os
 import time
 
 from rfs_slam_tpu.utils import cache
-from rfs_slam_tpu.utils.warmup import warm_transfers
 
 cache.enable()
-warm_transfers()
 
 import jax
 import jax.numpy as jnp
@@ -34,7 +32,7 @@ from rfs_slam_tpu.filters.rbphd import RBPHDConfig, RBPHDFilter
 from rfs_slam_tpu.apps import _vp_common
 from rfs_slam_tpu.io import logs
 from rfs_slam_tpu.io import victoria_park as vp_io
-from rfs_slam_tpu.io.xmlconfig import XmlConfig
+from rfs_slam_tpu.io.xmlconfig import XmlConfig, default_cfg
 from rfs_slam_tpu.models.motion import Ackerman2D, StaticLandmark
 from rfs_slam_tpu.models.victoria_park import VictoriaPark, fov_area_clutter
 from rfs_slam_tpu.ops.ekf import InnovationGates
@@ -232,8 +230,9 @@ def gps_rmse(times, best_poses, gps):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--cfg", required=True)
-    ap.add_argument("--data", default="/root/reference/data/VictoriaPark")
+    ap.add_argument("--cfg", default=default_cfg("rbphdslam_VictoriaPark.xml"))
+    ap.add_argument("--data", required=True,
+                    help="Victoria Park dataset directory (reference format)")
     ap.add_argument("--messages", type=int, default=None,
                     help="process only the first N sensor messages")
     ap.add_argument("--logdir", default=None)

@@ -45,8 +45,7 @@ def compose(pose_a, cov_a, pose_b, cov_b):
         jnp.stack([s, c, zero], axis=-1),
         jnp.stack([zero, zero, one], axis=-1),
     ], axis=-2)
-    cov_c = (Ja @ cov_a @ jnp.swapaxes(Ja, -1, -2)
-             + Jb @ cov_b @ jnp.swapaxes(Jb, -1, -2))
+    cov_c = gaussian.sandwich(Ja, cov_a) + gaussian.sandwich(Jb, cov_b)
     return pose_c, cov_c
 
 
@@ -63,7 +62,7 @@ def inverse(pose, cov):
         jnp.stack([s, -c, -xi], axis=-1),
         jnp.stack([zero, zero, -jnp.ones_like(x)], axis=-1),
     ], axis=-2)
-    return pose_i, J @ cov @ jnp.swapaxes(J, -1, -2)
+    return pose_i, gaussian.sandwich(J, cov)
 
 
 def transform_point(pose, point):

@@ -5,9 +5,9 @@ object caching its covariance inverse / determinant / Cholesky factor
 (reference: RandomVec.hpp:64-525).  Here the same functionality is provided as
 batched pure functions over ``(..., D)`` mean and ``(..., D, D)`` covariance
 arrays.  D is tiny (1-3), so inverses and determinants are computed with
-closed-form minors rather than LAPACK calls — on TPU these stay in registers
-and fuse into the surrounding elementwise work instead of forcing a batched
-linalg kernel.
+closed-form minors rather than LAPACK calls, which fuse into the surrounding
+elementwise work instead of forcing a batched linalg kernel.  Every small
+matrix product runs at full float32 precision (``Precision.HIGHEST``).
 
 Semantics matched to the reference:
 
@@ -130,7 +130,8 @@ def chol(S: jax.Array) -> jax.Array:
 
 def quad_form(Sinv: jax.Array, e: jax.Array) -> jax.Array:
     """e^T Sinv e for batched ``(..., D, D)`` and ``(..., D)``."""
-    return jnp.einsum("...i,...ij,...j->...", e, Sinv, e)
+    return jnp.einsum("...i,...ij,...j->...", e, Sinv, e,
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 def mahalanobis2(mean: jax.Array, cov: jax.Array, x: jax.Array) -> jax.Array:
@@ -171,7 +172,15 @@ def sample(key: jax.Array, mean: jax.Array, cov: jax.Array) -> jax.Array:
     Reference: RandomVec.hpp:457-496 (chol(S) @ N(0, I) + mean).
     """
     n = jax.random.normal(key, mean.shape, dtype=mean.dtype)
-    return mean + jnp.einsum("...ij,...j->...i", chol(cov), n)
+    return mean + jnp.einsum("...ij,...j->...i", chol(cov), n,
+                             precision=jax.lax.Precision.HIGHEST)
+
+
+def sandwich(J: jax.Array, S: jax.Array) -> jax.Array:
+    """J S J^T for batched ``(..., R, D)`` and ``(..., D, D)``."""
+    hi = jax.lax.Precision.HIGHEST
+    return jnp.matmul(jnp.matmul(J, S, precision=hi),
+                      jnp.swapaxes(J, -1, -2), precision=hi)
 
 
 def symmetrize(S: jax.Array) -> jax.Array:

@@ -1,16 +1,15 @@
 """Plane-layout (SoA) linear algebra for tiny matrices.
 
-TPU arrays are tiled (8 sublanes x 128 lanes) over their trailing two axes.
-Storing batched tiny matrices as ``[..., D, D]`` puts D (= 1..3) in the lane
-axis and wastes 126/128 lanes on every op, and every slice/stack is a relayout
-copy.  The framework therefore stores all per-landmark quantities as
-**component planes**: a mean is ``[D, P, M]`` (leading static component axis,
-full ``[P, M]`` tiles behind it) and a symmetric matrix is its packed upper
-triangle ``[T, P, M]`` with ``T = D (D + 1) / 2``.  This module provides the
-closed-form linear algebra over such planes (inverse, determinant, quadratic
-form, matrix products) as python-unrolled elementwise programs that XLA fuses
-into the surrounding computation.  Measured on TPU v5e this layout is ~45x
-faster than the ``[..., D, D]`` equivalent for the RB-PHD EKF inner kernel.
+Storing batched tiny matrices as ``[..., D, D]`` puts D (= 1..3) in the
+innermost axis, so every op works on a tiny trailing dimension and every
+slice/stack is a relayout copy.  The framework therefore stores all
+per-landmark quantities as **component planes**: a mean is ``[D, P, M]``
+(leading static component axis, full ``[P, M]`` planes behind it) and a
+symmetric matrix is its packed upper triangle ``[T, P, M]`` with
+``T = D (D + 1) / 2``.  This module provides the closed-form linear algebra
+over such planes (inverse, determinant, quadratic form, matrix products) as
+python-unrolled elementwise programs that XLA fuses into the surrounding
+computation.
 
 The dense <-> planar converters are for boundaries only (IO, tests, the
 object-style API); nothing in a filter hot loop should call them.
@@ -183,10 +182,9 @@ def sandwich_sym(H, s, d_in: int, R=None):
 def onehot(idx: jax.Array, m: int, dtype=jnp.float32) -> jax.Array:
     """One-hot of ``idx`` over size ``m``: ``[..., K] -> [..., K, m]``.
 
-    TPU lane-axis gathers (``take_along_axis`` over a minor axis) lower to
-    slow per-lane selects; a one-hot multiply-reduce on full tiles is several
-    times faster at filter shapes and exact (each row has exactly one 1.0, so
-    products/sums introduce no rounding).
+    Used for gathers and scatters along the minor (landmark) axis as a
+    one-hot multiply-reduce, which is exact (each row has exactly one 1.0,
+    so products/sums introduce no rounding) and fuses with its neighbours.
     """
     return (idx[..., None] == jnp.arange(m, dtype=idx.dtype)).astype(dtype)
 
@@ -213,17 +211,18 @@ def put_lane(dst: jax.Array, idx: jax.Array, src: jax.Array,
     or an entry with ``valid`` False is dropped); ``src``: [..., K] values.
     Entries of one row MUST target distinct slots.
 
-    This replaces ``dst.at[..., idx].set(src)``: under vmap/batching a
-    scatter with per-row indices lowers to a serialized per-lane update on
-    TPU — measured 50x slower than this formulation in the Murty/Hungarian
-    kernels (see ops/assignment.py).
+    Equivalent to ``dst.at[..., idx].set(src)`` bit for bit (the product
+    runs at full float32 precision), written as a one-hot reduce so that
+    per-row indices under vmap/batching need no batched scatter.
     """
     m = dst.shape[-1]
     oh = (idx[..., None] == jnp.arange(m, dtype=idx.dtype)).astype(dst.dtype)
     if valid is not None:
         oh = oh * valid[..., None].astype(dst.dtype)
     hit = jnp.sum(oh, axis=-2)                       # [..., M]
-    put = jnp.einsum("...km,...k->...m", oh, src)
+    # full f32 precision: a TF32 product would round every value it puts
+    put = jnp.einsum("...km,...k->...m", oh, src,
+                     precision=jax.lax.Precision.HIGHEST)
     return jnp.where(hit > 0.5, put, dst)            # inf-safe vs dst*(1-hit)
 
 

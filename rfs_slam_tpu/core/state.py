@@ -2,15 +2,15 @@
 
 The reference stores particles as shared-ptr object graphs
 (``Particle<PoseType, DataType>`` with a per-particle ``GaussianMixture``
-object, reference: Particle.hpp:47-150, GaussianMixture.hpp:51-224).  On TPU
+object, reference: Particle.hpp:47-150, GaussianMixture.hpp:51-224).  Here
 the same information is a handful of fixed-shape arrays with an explicit
 alive-mask, so that every filter phase is a dense batched program and
 resampling is a single gather along the particle axis.
 
 Landmark means and covariances are stored **plane-major**
 (:mod:`rfs_slam_tpu.core.planar`): ``mean[D, P, M]`` and the packed symmetric
-``cov[T, P, M]`` keep full ``[P, M]`` TPU tiles per component, which measures
-~45x faster in the EKF inner kernel than the ``[P, M, D, D]`` layout.  Use
+``cov[T, P, M]`` keep one full ``[P, M]`` plane per component, so every
+phase is a fused elementwise program over planes.  Use
 ``mean_dense`` / ``cov_dense`` / ``from_dense`` only at boundaries (IO, tests).
 """
 
@@ -20,9 +20,8 @@ from typing import Any
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
-from rfs_slam_tpu.core import planar
+from rfs_slam_tpu.core import planar, struct
 
 
 class GMState(struct.PyTreeNode):
@@ -78,12 +77,12 @@ class GMState(struct.PyTreeNode):
 
     @property
     def mean_dense(self) -> jax.Array:
-        """[P, M, D] view (boundary use only — relayout copy on TPU)."""
+        """[P, M, D] view (boundary use only — a relayout copy)."""
         return planar.unpack_vec(self.mean)
 
     @property
     def cov_dense(self) -> jax.Array:
-        """[P, M, D, D] view (boundary use only — relayout copy on TPU)."""
+        """[P, M, D, D] view (boundary use only — a relayout copy)."""
         return planar.unpack_sym(self.cov, self.dim)
 
     @property

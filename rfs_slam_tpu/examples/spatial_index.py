@@ -3,7 +3,7 @@
 Equivalent of the reference's ``spatialIndexTree`` example
 (src/examples/spatialIndexTree.cpp, driving SpatialIndexTree.hpp:76-140):
 insert random 2-D landmarks into the grid spatial index (the fixed-shape
-TPU replacement for the quadtree), run an axis-aligned box query and
+array replacement for the quadtree), run an axis-aligned box query and
 closest-point queries, validate both against brute force, and export the
 occupied-cell layout as ASCII (the reference exports the tree for
 ``spatialIndexTreeTestVisualizer.py``, SpatialIndexTree.hpp:115).

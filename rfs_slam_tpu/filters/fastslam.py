@@ -19,7 +19,7 @@ Mapping to arrays:
   hypotheses each update and the expanded set is KEPT as new particles
   until it would exceed ``n_particles_max``, at which point it
   force-resamples back to ``n_particles`` (FastSLAM.hpp:504-563 expansion,
-  resampleWithMapCopy :728-757).  TPU-first this is selection before
+  resampleWithMapCopy :728-757).  Here this is selection before
   materialization over a fixed ``n_particles_max`` axis — see
   ``_update_body_mh_grow``.  ``mh_grow=False`` keeps the legacy
   fixed-shape deviation that resamples to ``n_particles`` every update;
@@ -34,9 +34,8 @@ import dataclasses
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
-from rfs_slam_tpu.core import gaussian, planar
+from rfs_slam_tpu.core import gaussian, planar, struct
 from rfs_slam_tpu.core.state import BirthCandidates, GMState, ParticleState
 from rfs_slam_tpu.ops import gm as gm_ops
 from rfs_slam_tpu.ops import resample as resample_ops
@@ -94,17 +93,13 @@ class FastSLAMConfig:
     mh_grow: bool = True
     # static cap on Murty children solved per expansion wave (see
     # ops/assignment.murty): the uncapped wave width is nmz_capacity - 1
-    # while only ~n_in_range children are ever valid, and on TPU the
-    # vmapped-Hungarian wave cost scales with width.  At the 2-D sim's
-    # measured in-range counts (mean 11, p90 14, max 17) the default cap
-    # of 12 truncates ROUTINELY (~10%+ of expansions) — but since round 5
-    # the children dropped are those with the lowest dual upper bound and
-    # those provably outside max_da_loglik_diff of the best hypothesis
+    # while only ~n_in_range children are ever valid, and the vmapped-
+    # Hungarian wave cost scales with width.  At the 2-D sim's measured
+    # in-range counts (mean 11, p90 14, max 17) a cap truncates routinely,
+    # but the children dropped are those with the lowest dual upper bound
+    # and those provably outside max_da_loglik_diff of the best hypothesis
     # (murty prune_window), so the discard is the provably-weakest tail,
-    # not the weakest-ranked rows (measured cost of cap 12 vs exact cap
-    # 17 at r4, rank-ordered: ~0.01 m).  The round-5 default drops to 6
-    # on the strength of that bound ordering: murty phase 697 -> 356 ms
-    # at MH sim shapes (PERF.md round-5 table), best hypothesis exact at
+    # not the weakest-ranked rows.  The best hypothesis stays exact at
     # every measured shape.  None = unbounded (exact, slow).
     murty_child_cap: int | None = 6
     # static cap on the number of PARTICLE LANES that run the full Murty
@@ -213,6 +208,8 @@ class FastSLAMFilter:
         )
         return out
 
+    # named scopes label each phase's kernels in profiler traces
+    @jax.named_scope("da_table")
     def _da_table(self, pose, gm: GMState, z, z_mask, meas=None):
         """In-range compaction + padded log-likelihood table.
 
@@ -275,6 +272,7 @@ class FastSLAMFilter:
             gate_ok & jnp.broadcast_to(ok, gate_ok.shape))
         return table, lm_idx, row_valid, pd_rank, close_rank, gate_tab
 
+    @jax.named_scope("apply")
     def _apply_hypothesis(self, pose, gm: GMState, z, z_mask, da, table,
                           lm_idx, row_valid, pd_rank, log_w, meas=None):
         """EKF updates + existence log-odds + weight for one DA hypothesis.
@@ -321,8 +319,7 @@ class FastSLAMFilter:
         w_new_rank = w_rank + jnp.where(row_valid, dw, 0.0)
 
         # scatter rank-space results back to landmark slots via one-hot
-        # (lm_idx == M rows drop; batched scatters serialize under vmap on
-        # TPU — see planar.put_lane)
+        # (lm_idx == M rows drop; see planar.put_lane)
         gm_mean = planar.put_lane(
             gm.mean, jnp.broadcast_to(lm_idx, (gm.mean.shape[0],) + lm_idx.shape),
             jnp.where(updated[None], m_upd, lm_mean))
@@ -341,6 +338,7 @@ class FastSLAMFilter:
         n_in_fov = jnp.sum(updated, axis=1).astype(jnp.int32)
         return gm, z_used, log_w, n_in_fov
 
+    @jax.named_scope("candidates")
     def _candidates(self, pose, gm: GMState, cand: BirthCandidates,
                     z, z_mask, z_used, n_in_fov, meas=None):
         """Unused measurements -> landmark-candidate pipeline
@@ -442,36 +440,19 @@ class FastSLAMFilter:
         cand = cand.replace(n_checks=checks, alive=cand.alive & ~trigger)
         return gm, cand
 
-    def _update_body_mh_grow(self, state: FastSLAMState, z, z_mask,
-                             table, lm_idx, row_valid, pd_rank, gate_tab,
-                             meas=None):
-        """MH-FastSLAM with the reference's particle-set growth semantics
-        (FastSLAM.hpp:504-563 expansion + resampleWithMapCopy :728-757),
-        restructured TPU-first as **selection before materialization**:
+    @jax.named_scope("assignment")
+    def _mh_hypothesis_weights(self, state: FastSLAMState, z, z_mask,
+                               table, row_valid, gate_tab):
+        """Steps 1-2 of :meth:`_update_body_mh_grow`: the Murty k-best
+        hypotheses of every live slot and their exact post-update
+        log-weights, before any resampling.
 
-        A hypothesis's post-update weight is ``w_p / n_h * exp(sum of gated
-        table likelihoods of its performed associations)`` — fully known
-        BEFORE any EKF map update (the reference computes the same sum during
-        the update, :605, :717).  So instead of materializing up to
-        ``n_live * H`` particle maps and then resampling, this:
-
-        1. scores all ``P_cap x H`` hypotheses from the DA table,
-        2. applies the reference's resampleWithMapCopy rule on the flat
-           hypothesis distribution (force-resample to n_particles when the
-           expanded count would exceed n_particles_max; else ESS-gated
-           resample when the update/measurement gates are met; else keep all
-           hypotheses as particles — count <= n_particles_max fits the
-           fixed axis),
-        3. gathers parent state and applies the ONE selected hypothesis per
-           surviving slot.
-
-        The EKF work is always ``P_cap`` slots instead of ``P_cap * H``.
+        Returns ``(das [P_cap, H, NMZ], flat_lw [H * P_cap], count)`` with
+        ``flat_lw`` h-major (index ``h * P_cap + p``) and ``count`` the
+        number of kept hypotheses over live slots.
         """
         cfg = self.cfg
-        pose = state.particles.pose
-        gm = state.gm
-        P_cap = pose.shape[0]
-        P_init = cfg.n_particles
+        P_cap = state.particles.pose.shape[0]
         H = cfg.max_hypotheses
         NMZ = cfg.nmz_capacity
         Zc = z.shape[0]
@@ -512,8 +493,44 @@ class FastSLAMFilter:
         # flat layout h * P_cap + p (matches the h-major concat convention)
         flat_lw = hyp_lw.T.reshape(-1)                   # [H * Pc]
 
-        # ---- resampleWithMapCopy decision (FastSLAM.hpp:728-757)
         count = jnp.sum(jnp.where(alive_p, n_h, 0))
+        return das, flat_lw, count
+
+    def _update_body_mh_grow(self, state: FastSLAMState, z, z_mask,
+                             table, lm_idx, row_valid, pd_rank, gate_tab,
+                             meas=None):
+        """MH-FastSLAM with the reference's particle-set growth semantics
+        (FastSLAM.hpp:504-563 expansion + resampleWithMapCopy :728-757),
+        restructured as **selection before materialization**:
+
+        A hypothesis's post-update weight is ``w_p / n_h * exp(sum of gated
+        table likelihoods of its performed associations)`` — fully known
+        BEFORE any EKF map update (the reference computes the same sum during
+        the update, :605, :717).  So instead of materializing up to
+        ``n_live * H`` particle maps and then resampling, this:
+
+        1. scores all ``P_cap x H`` hypotheses from the DA table,
+        2. applies the reference's resampleWithMapCopy rule on the flat
+           hypothesis distribution (force-resample to n_particles when the
+           expanded count would exceed n_particles_max; else ESS-gated
+           resample when the update/measurement gates are met; else keep all
+           hypotheses as particles — count <= n_particles_max fits the
+           fixed axis),
+        3. gathers parent state and applies the ONE selected hypothesis per
+           surviving slot.
+
+        The EKF work is always ``P_cap`` slots instead of ``P_cap * H``.
+        """
+        cfg = self.cfg
+        pose = state.particles.pose
+        gm = state.gm
+        P_cap = pose.shape[0]
+        P_init = cfg.n_particles
+        nZ = jnp.sum(z_mask)
+        das, flat_lw, count = self._mh_hypothesis_weights(
+            state, z, z_mask, table, row_valid, gate_tab)
+
+        # ---- resampleWithMapCopy decision (FastSLAM.hpp:728-757)
         force = count > P_cap
         gates_met = (
             (state.n_updates + 1 >= cfg.min_updates_before_resample)
@@ -600,7 +617,8 @@ class FastSLAMFilter:
                 state, z, z_mask, table, lm_idx, row_valid, pd_rank,
                 gate_tab, meas=meas)
         if H == 1:
-            da, _ = jax.vmap(hungarian)(table)
+            with jax.named_scope("assignment"):
+                da, _ = jax.vmap(hungarian)(table)
             gm, z_used, log_w, n_in_fov = self._apply_hypothesis(
                 pose, gm, z, z_mask, da, table, lm_idx, row_valid, pd_rank,
                 state.particles.log_w, meas=meas)

@@ -13,9 +13,9 @@ whole particle set:
   and ESS-gated systematic resampling (RBPHDFilter.hpp:500-539).
 
 All map state is plane-major (:mod:`rfs_slam_tpu.core.planar`): means are
-``[D, P, M]`` and covariances packed ``[T, P, M]``, so the landmark axis M
-fills TPU lanes and every phase is a fused elementwise program.  The weight
-table is ``[P, Z, M]``.
+``[D, P, M]`` and covariances packed ``[T, P, M]``, with the landmark axis M
+innermost, so every phase is a fused elementwise program.  The weight table
+is ``[P, Z, M]``.
 
 Known, documented deviations from the reference (all order-dependence or
 approximation-class; parity is statistical — see SURVEY.md section 7):
@@ -36,9 +36,8 @@ from typing import Any
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
-from rfs_slam_tpu.core import gaussian, planar
+from rfs_slam_tpu.core import gaussian, planar, struct
 from rfs_slam_tpu.core.state import BirthCandidates, GMState, ParticleState
 from rfs_slam_tpu.ops import gm as gm_ops
 from rfs_slam_tpu.ops import resample as resample_ops
@@ -85,21 +84,6 @@ class RBPHDConfig:
     min_measurements_before_resample: int = 1
     ess_threshold: float = 200.0
     use_cluster_process: bool = False
-    # fused Pallas map-update kernel (ops/pallas/map_update2d.py):
-    # None = auto (on TPU for 2-D RangeBearing configs with lane-aligned
-    # map capacity), "pallas" / "interpret" = force, "off" = XLA path.
-    fused_map_update: str | None = None
-    # Pallas merge: run exactly this many parallel merge passes instead of
-    # while-until-fixpoint.  MEASURED REJECT at 2 (bench r4: 487 -> 454
-    # steps/s AND median pose error 0.060 -> 0.092, tripping the 0.075
-    # accuracy gate): the fixpoint's extra passes both matter statistically
-    # and are cheaper than a fixed second pass on average.  Kept as an
-    # experiment knob; None (default) = fixpoint loop.
-    merge_passes: int | None = None
-    # force a merge implementation ("pallas" | "xla"); None = auto (the
-    # Pallas kernel on TPU for lane-aligned 2-D mixtures).  The overflow
-    # demo forces "xla" to exhibit the general path's O(M^2) HBM footprint.
-    merge_impl: str | None = None
 
 
 class RBPHDState(struct.PyTreeNode):
@@ -336,56 +320,29 @@ class RBPHDFilter:
         pose = state.particles.pose
         nZ = jnp.sum(z_mask)
 
+        # named scopes label each phase's kernels in profiler traces
         # ---------- map update (RBPHDFilter.hpp:543-725)
-        gm_full, log_w, unused, n_in_fov, clutter_z = self._map_update(
-            state, z, z_mask, meas)
+        with jax.named_scope("map_update"):
+            gm_full, log_w, unused, n_in_fov, clutter_z = self._map_update(
+                state, z, z_mask, meas)
 
         # ---------- importance weighting (RBPHDFilter.hpp:728-997)
         if not cfg.use_cluster_process:
-            log_w = self._importance_weights(
-                log_w, pose, gm_full, z, z_mask, clutter_z, nZ, meas
-            )
+            with jax.named_scope("importance"):
+                log_w = self._importance_weights(
+                    log_w, pose, gm_full, z, z_mask, clutter_z, nZ, meas
+                )
 
         # ---------- merge + prune (RBPHDFilter.hpp:501-516)
-        gm_full = gm_ops.merge(gm_full, cfg.merge_threshold,
-                               cfg.merge_inflation,
-                               impl=cfg.merge_impl,
-                               fixed_passes=cfg.merge_passes)
-        gm_full = gm_ops.prune(gm_full, cfg.prune_threshold)
+        with jax.named_scope("merge"):
+            gm_full = gm_ops.merge(gm_full, cfg.merge_threshold,
+                                   cfg.merge_inflation)
+        with jax.named_scope("prune"):
+            gm_full = gm_ops.prune(gm_full, cfg.prune_threshold)
 
-        return self._resample_phase(state, gm_full, log_w, unused, n_in_fov,
-                                    z, z_mask, nZ)
-
-    def _fused_impl(self, meas, gm, dz: int) -> str | None:
-        """Pick the fused-Pallas map-update implementation, or None for the
-        XLA path.  Auto: TPU + 2-D RangeBearing + range-bearing gates +
-        lane-aligned map capacity (merge-style dispatch, ops/gm.py:228)."""
-        cfg = self.cfg
-        if cfg.fused_map_update is not None:
-            return (None if cfg.fused_map_update == "off"
-                    else cfg.fused_map_update)
-        from rfs_slam_tpu.models.measurement import RangeBearing
-
-        default_dev = jax.config.jax_default_device
-        platform = (default_dev.platform if default_dev is not None
-                    else jax.default_backend())
-        # Rough VMEM budget check: the kernel holds ~6 [block, Zc, M] f32
-        # cubes plus ~20 [block, M] planes resident per grid step (block=8,
-        # ops/pallas/map_update2d.py).  Past the ~16 MB scoped-VMEM limit
-        # Mosaic fails at compile (or spills) instead of falling back, so a
-        # large map_capacity x z_capacity config must take the XLA path
-        # (round-4 advisor finding).  12 MB leaves headroom for Mosaic's own
-        # temporaries.
-        block = 8
-        zc = self.cfg.z_capacity
-        vmem_bytes = 4 * block * gm.capacity * (6 * zc + 20)
-        ok = (
-            isinstance(meas, RangeBearing) and gm.dim == 2 and dz == 2
-            and gm.capacity % 128 == 0 and platform == "tpu"
-            and tuple(self.gates.wrap_dims) == (1,)
-            and vmem_bytes <= 12 * 1024 * 1024
-        )
-        return "pallas" if ok else None
+        with jax.named_scope("resample"):
+            return self._resample_phase(state, gm_full, log_w, unused,
+                                        n_in_fov, z, z_mask, nZ)
 
     def _map_update(self, state: RBPHDState, z, z_mask, meas):
         """Map-update phase: Pd, batched EKF multi-correct, the [P, Z, M]
@@ -393,12 +350,6 @@ class RBPHDFilter:
         unused-measurement flags, and the new-Gaussian append
         (RBPHDFilter.hpp:543-725 — the reference's ``mapUpdate`` /
         ``mapUpdate_kf`` timing phases).
-
-        Two implementations with identical semantics: the fused Pallas
-        kernel (ops/pallas/map_update2d.py — the whole phase in VMEM, no
-        [P, Z, M] cube in HBM) when :meth:`_fused_impl` selects it, else
-        the XLA fusion chain.  Both feed the shared selection tail (exact
-        top-k + new-mean reconstruction + replace_weakest).
 
         Returns ``(gm_full, log_w, unused, n_in_fov, clutter_z)``.
         """
@@ -414,103 +365,74 @@ class RBPHDFilter:
         clutter_z = jnp.broadcast_to(meas.clutter_intensity(z, nZ), (Zc,))
         log_w = state.particles.log_w
 
-        impl = self._fused_impl(meas, gm, dz)
-        if impl is not None:
-            from rfs_slam_tpu.ops.pallas.map_update2d import (
-                fused_map_update2d, pack_params)
+        # ------ probability of detection (RBPHDFilter.hpp:597-609)
+        pd_raw, close = meas.pd_p(pose[:, None, :], gm.mean, gm.cov)
+        pd_raw = jnp.where(gm.alive, pd_raw, 0.0)
+        close = close & gm.alive
+        pd = jnp.where(close, 1.0, pd_raw)  # close-to-limit: Pd = 1
+        n_in_fov = jnp.sum((pd != 0.0) & gm.alive, axis=1).astype(jnp.int32)
 
-            params = pack_params(meas, self.gates,
-                                 cfg.new_gaussian_md_threshold,
-                                 cfg.birth_gaussian_weight)
-            fo = fused_map_update2d(
-                pose, gm.mean[0], gm.mean[1], gm.cov[0], gm.cov[1],
-                gm.cov[2], gm.w, gm.w_prev, gm.alive, z, z_mask, params,
-                new_per_z=T_pz, interpret=(impl == "interpret"))
-            n_in_fov = jnp.sum(fo.pd != 0.0, axis=1).astype(jnp.int32)
-            if cfg.use_cluster_process:
-                w_km_sum = jnp.sum(jnp.where(gm.alive, gm.w, 0.0), axis=1)
-                log_prod = jnp.sum(
-                    jnp.where(z_mask[None, :], jnp.log(fo.col_sum), 0.0),
-                    axis=1)
-                log_w = log_w + w_km_sum + log_prod
-            gm_old = gm.replace(w=fo.w, w_prev=fo.w_prev)
-            unused = fo.unused
-            cand_w, cand_m = fo.cand_w, fo.cand_m
-            K_planes, zexp_planes, covupd_planes = fo.K, fo.z_exp, fo.cov_upd
-        else:
-            # ------ probability of detection (RBPHDFilter.hpp:597-609)
-            pd_raw, close = meas.pd_p(pose[:, None, :], gm.mean, gm.cov)
-            pd_raw = jnp.where(gm.alive, pd_raw, 0.0)
-            close = close & gm.alive
-            pd = jnp.where(close, 1.0, pd_raw)  # close-to-limit: Pd = 1
-            n_in_fov = jnp.sum((pd != 0.0) & gm.alive, axis=1).astype(jnp.int32)
+        # ------ batched EKF correction (KalmanFilter.hpp:261-342)
+        corr = correct_all(meas, self.gates, pose, gm.mean, gm.cov, z)
 
-            # ------ batched EKF correction (KalmanFilter.hpp:261-342)
-            corr = correct_all(meas, self.gates, pose, gm.mean, gm.cov, z)
+        # ------ nM x nZ weight table [P, Z, M] (RBPHDFilter.hpp:620-659)
+        md_gate = corr.md2 <= cfg.new_gaussian_md_threshold**2
+        cell = (
+            gm.alive[:, None, :] & (pd[:, None, :] > 0.0)
+            & z_mask[None, :, None] & md_gate & (corr.likelihood > 0.0)
+        )
+        w_tab = jnp.where(
+            cell, pd[:, None, :] * gm.w[:, None, :] * corr.likelihood, 0.0
+        )
+        col_sum = clutter_z[None, :] + jnp.sum(w_tab, axis=2)  # [P, Zc]
+        w_tab = jnp.where(z_mask[None, :, None],
+                          w_tab / col_sum[:, :, None], 0.0)
 
-            # ------ nM x nZ weight table [P, Z, M] (RBPHDFilter.hpp:620-659)
-            md_gate = corr.md2 <= cfg.new_gaussian_md_threshold**2
-            cell = (
-                gm.alive[:, None, :] & (pd[:, None, :] > 0.0)
-                & z_mask[None, :, None] & md_gate & (corr.likelihood > 0.0)
+        if cfg.use_cluster_process:
+            # single-cluster-process weighting (RBPHDFilter.hpp:652-666)
+            w_km_sum = jnp.sum(jnp.where(gm.alive, gm.w, 0.0), axis=1)
+            log_prod = jnp.sum(
+                jnp.where(z_mask[None, :], jnp.log(col_sum), 0.0), axis=1
             )
-            w_tab = jnp.where(
-                cell, pd[:, None, :] * gm.w[:, None, :] * corr.likelihood, 0.0
-            )
-            col_sum = clutter_z[None, :] + jnp.sum(w_tab, axis=2)  # [P, Zc]
-            w_tab = jnp.where(z_mask[None, :, None],
-                              w_tab / col_sum[:, :, None], 0.0)
+            log_w = log_w + w_km_sum + log_prod
 
-            if cfg.use_cluster_process:
-                # single-cluster-process weighting (RBPHDFilter.hpp:652-666)
-                w_km_sum = jnp.sum(jnp.where(gm.alive, gm.w, 0.0), axis=1)
-                log_prod = jnp.sum(
-                    jnp.where(z_mask[None, :], jnp.log(col_sum), 0.0), axis=1
-                )
-                log_w = log_w + w_km_sum + log_prod
+        # ------ missed-detection weights (RBPHDFilter.hpp:686-706)
+        w_km = gm.w
+        w_miss = (1.0 - pd) * w_km
+        row_sum = jnp.sum(w_tab, axis=1)                       # [P, M]
+        delta = pd * w_km - row_sum
+        comp = close & (w_km > cfg.birth_gaussian_weight) & (delta > 0.0)
+        w_miss = jnp.where(comp, jnp.minimum(w_miss + delta, 1.0), w_miss)
+        gm_old = gm.replace(
+            w=jnp.where(gm.alive, w_miss, gm.w),
+            w_prev=jnp.where(gm.alive, w_km, gm.w_prev),
+        )
 
-            # ------ missed-detection weights (RBPHDFilter.hpp:686-706)
-            w_km = gm.w
-            w_miss = (1.0 - pd) * w_km
-            row_sum = jnp.sum(w_tab, axis=1)                       # [P, M]
-            delta = pd * w_km - row_sum
-            comp = close & (w_km > cfg.birth_gaussian_weight) & (delta > 0.0)
-            w_miss = jnp.where(comp, jnp.minimum(w_miss + delta, 1.0), w_miss)
-            gm_old = gm.replace(
-                w=jnp.where(gm.alive, w_miss, gm.w),
-                w_prev=jnp.where(gm.alive, w_km, gm.w_prev),
-            )
+        # ------ unused measurements (RBPHDFilter.hpp:709-720)
+        used = jnp.any(w_tab > 0.0, axis=2)                    # [P, Zc]
+        unused = z_mask[None, :] & ~used
 
-            # ------ unused measurements (RBPHDFilter.hpp:709-720)
-            used = jnp.any(w_tab > 0.0, axis=2)                    # [P, Zc]
-            unused = z_mask[None, :] & ~used
-
-            # ------ hierarchical per-measurement selection: top-new_per_z
-            # over the landmark lanes by iterated max (no sort).  A flat
-            # top_k over the [P, Zc * M] table was the single hottest op of
-            # the whole step (0.89 ms of a 2.7 ms step at bench shapes); the
-            # MD gate keeps only a few landmarks per measurement column, so
-            # per-column truncation at new_per_z is the same deviation class
-            # as the new_capacity cap.
-            m_ids = jnp.arange(M)
-            v = w_tab
-            col_vals, col_midx = [], []
-            for _ in range(T_pz):
-                am = jnp.argmax(v, axis=2)                         # [P,Zc]
-                col_vals.append(jnp.max(v, axis=2))
-                col_midx.append(am)
-                v = jnp.where(m_ids[None, None, :] == am[:, :, None], 0.0, v)
-            cand_w = jnp.concatenate(col_vals, axis=1)             # [P,Zc*T]
-            cand_m = jnp.concatenate(col_midx, axis=1)
-            K_planes, zexp_planes, covupd_planes = (
-                corr.K, corr.z_exp, corr.cov_upd)
+        # ------ hierarchical per-measurement selection: top-new_per_z
+        # over the landmark lanes by iterated max (no sort) instead of a
+        # flat top_k over the [P, Zc * M] table.  The MD gate keeps only a
+        # few landmarks per measurement column, so per-column truncation
+        # at new_per_z is the same deviation class as the new_capacity cap.
+        m_ids = jnp.arange(M)
+        v = w_tab
+        col_vals, col_midx = [], []
+        for _ in range(T_pz):
+            am = jnp.argmax(v, axis=2)                         # [P,Zc]
+            col_vals.append(jnp.max(v, axis=2))
+            col_midx.append(am)
+            v = jnp.where(m_ids[None, None, :] == am[:, :, None], 0.0, v)
+        cand_w = jnp.concatenate(col_vals, axis=1)             # [P,Zc*T]
+        cand_m = jnp.concatenate(col_midx, axis=1)
 
         # ---------- new Gaussians (RBPHDFilter.hpp:675-683): exact top-k
         # over the Zc * new_per_z survivors become new map entries.  Updated
         # means are reconstructed ONLY at the k selected cells from the
-        # Kalman-gain planes (m + K nu, KalmanFilter.hpp:261-342) —
-        # materializing the full [D, P, Z, M] mean cube and gathering from
-        # it dominated the map-update's HBM traffic.
+        # Kalman-gain planes (m + K nu, KalmanFilter.hpp:261-342), so the
+        # full [D, P, Z, M] mean cube is never materialized.
         cand_z = jnp.tile(jnp.arange(Zc), T_pz)[None, :]           # [1,Zc*T]
         k = min(cfg.new_capacity, Zc * T_pz)
         top_w, top_c = jax.lax.top_k(cand_w, k)                    # [P,k]
@@ -520,7 +442,7 @@ class RBPHDFilter:
         ohm = planar.onehot(m_idx, M, cand_w.dtype)                # [P,k,M]
         # one fused lane-gather for every per-landmark plane we need
         planes = jnp.concatenate(
-            [gm.mean, K_planes, zexp_planes, covupd_planes], axis=0
+            [gm.mean, corr.K, corr.z_exp, corr.cov_upd], axis=0
         )                                                          # [X,P,M]
         sel = planar.take_lane(planes, ohm[None])                  # [X,P,k]
         mean_sel, K_sel, zexp_sel, new_cov = (
@@ -613,10 +535,13 @@ class RBPHDFilter:
         lik_em = jnp.where(jnp.isfinite(lik_em), lik_em, 0.0)
         lik_em = jnp.where(gm.alive[:, None, :], lik_em, 0.0)
         tiny = jnp.asarray(gaussian.TINY, lik_em.dtype)
+        hi = jax.lax.Precision.HIGHEST
         int_before = tiny + jnp.einsum("pem,pm->pe", lik_em,
-                                       jnp.where(gm.alive, gm.w_prev, 0.0))
+                                       jnp.where(gm.alive, gm.w_prev, 0.0),
+                                       precision=hi)
         int_after = tiny + jnp.einsum("pem,pm->pe", lik_em,
-                                      jnp.where(gm.alive, gm.w, 0.0))
+                                      jnp.where(gm.alive, gm.w, 0.0),
+                                      precision=hi)
         log_int_ratio = jnp.sum(
             jnp.where(eval_valid, jnp.log(int_before) - jnp.log(int_after), 0.0),
             axis=1,

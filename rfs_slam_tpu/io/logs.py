@@ -2,7 +2,7 @@
 
 The reference's analysis and animation toolchain consumes fixed-column
 whitespace-separated text logs (formats per rbphdslam2dSim.cpp:369-441 and
-:609-641).  The TPU build writes the SAME formats so the reference's own
+:609-641).  This package writes the SAME formats so the reference's own
 Python animators / analysis flows work unchanged:
 
 * gtPose.dat:         t x y theta

@@ -6,7 +6,7 @@ stream — Input messages trigger predicts with the held previous input,
 Lidar messages trigger a predict-to-scan-time plus an update
 (rbphdslam_VictoriaPark.cpp:471-628).
 
-For the TPU the event stream is re-bucketed into fixed-shape "lidar frames":
+For the device the event stream is re-bucketed into fixed-shape "lidar frames":
 frame j carries up to ``K_PRED`` predict sub-steps (dt, held input, noise
 flag) followed by the scan's measurement set.  The device loop is then a
 scan over frames with an inner fori over the padded predict sub-steps —

@@ -4,13 +4,24 @@ Parses the reference's Boost property-tree XML configs UNCHANGED
 (cfg/rbphdslam2dSim.xml, cfg/fastslam2dSim.xml, cfg/*VictoriaPark*.xml —
 key paths per the readConfigFile functions: rbphdslam2dSim.cpp:77-145,
 fastslam2dSim.cpp, rbphdslam_VictoriaPark.cpp:85-184), so the same experiment
-definitions drive both implementations.
+definitions drive both implementations.  The repository's own ``cfg/``
+directory holds one such file per app; each app reads its file by default.
 """
 
 from __future__ import annotations
 
+import os
 import xml.etree.ElementTree as ET
 from typing import Any
+
+CFG_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__)))), "cfg")
+
+
+def default_cfg(name: str) -> str:
+    """Path of the in-repo config file ``name`` (e.g. rbphdslam2dSim.xml)."""
+    return os.path.join(CFG_DIR, name)
 
 
 class XmlConfig:

@@ -30,9 +30,8 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
-from rfs_slam_tpu.core import gaussian
+from rfs_slam_tpu.core import gaussian, struct
 
 # floor for squared-range Jacobian denominators (see RangeBearing.measure):
 # keeps H finite for a landmark exactly at the sensor; shared constant so the
@@ -111,7 +110,7 @@ class RangeBearing(struct.PyTreeNode):
         )
         S = jnp.broadcast_to(self.R, z.shape + (2,))
         if lm_cov is not None:
-            S = S + H_lmk @ lm_cov @ jnp.swapaxes(H_lmk, -1, -2)
+            S = S + gaussian.sandwich(H_lmk, lm_cov)
         valid = (r <= self.r_max) & (r >= self.r_min)
         return MeasurePrediction(z, S, H_lmk, H_pose, valid)
 
@@ -175,7 +174,7 @@ class RangeBearing(struct.PyTreeNode):
             ],
             axis=-2,
         )
-        cov = Hinv @ self.R @ jnp.swapaxes(Hinv, -1, -2)
+        cov = gaussian.sandwich(Hinv, self.R)
         return mean, cov
 
     def pd(self, pose: jax.Array, lm_mean: jax.Array, lm_cov=None):
@@ -234,7 +233,7 @@ class XY(struct.PyTreeNode):
         )
         S = jnp.broadcast_to(self.R, z.shape + (2,))
         if lm_cov is not None:
-            S = S + H_lmk @ lm_cov @ jnp.swapaxes(H_lmk, -1, -2)
+            S = S + gaussian.sandwich(H_lmk, lm_cov)
         r = jnp.sqrt(dx * dx + dy * dy)
         valid = (r <= self.r_max) & (r >= self.r_min)
         return MeasurePrediction(z, S, H_lmk, H_pose, valid)
@@ -299,7 +298,7 @@ class XY(struct.PyTreeNode):
         Hinv = jnp.stack(
             [jnp.stack([c, -s], axis=-1), jnp.stack([s, c], axis=-1)], axis=-2
         )
-        cov = Hinv @ self.R @ jnp.swapaxes(Hinv, -1, -2)
+        cov = gaussian.sandwich(Hinv, self.R)
         return mean, cov
 
     def pd(self, pose, lm_mean, lm_cov=None):

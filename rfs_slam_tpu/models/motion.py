@@ -17,9 +17,8 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
-from rfs_slam_tpu.core import gaussian
+from rfs_slam_tpu.core import gaussian, struct
 
 
 def _maybe_sample_input(key, u, use_input_noise, input_cov):

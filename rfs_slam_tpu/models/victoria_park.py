@@ -35,9 +35,8 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
-from rfs_slam_tpu.core import gaussian
+from rfs_slam_tpu.core import gaussian, struct
 from rfs_slam_tpu.models.measurement import MeasurePrediction
 
 N_PROBE_PAIRS = 3
@@ -93,7 +92,7 @@ class VictoriaPark(struct.PyTreeNode):
         S = jnp.broadcast_to(self.R, z.shape + (3,))
         if lm_cov is not None:
             # 2-D block via H2d; diameter: cov_dd + R_dd + r^2 * Slb
-            S = S + H @ lm_cov @ jnp.swapaxes(H, -1, -2)
+            S = S + gaussian.sandwich(H, lm_cov)
         S = S.at[..., 2, 2].add(r2 * self.slb)
         valid = jnp.ones_like(r, bool)  # measure() always succeeds (:148)
         H_pose = jnp.zeros(z.shape + (3,))
@@ -238,7 +237,7 @@ class VictoriaPark(struct.PyTreeNode):
             [jnp.stack([c, -r * s], axis=-1), jnp.stack([s, r * c], axis=-1)],
             axis=-2,
         )
-        cov2 = Hinv @ self.R[:2, :2] @ jnp.swapaxes(Hinv, -1, -2)
+        cov2 = gaussian.sandwich(Hinv, self.R[:2, :2])
         cov = jnp.zeros(mean.shape + (3,))
         cov = cov.at[..., :2, :2].set(cov2)
         cov = cov.at[..., 2, 2].set(self.R[2, 2])
@@ -299,9 +298,7 @@ class VictoriaPark(struct.PyTreeNode):
         perp = jnp.stack([-jnp.sin(bearing), jnp.cos(bearing)], axis=-1)
 
         if lm_cov is not None:
-            var_perp = jnp.einsum(
-                "...i,...ij,...j->...", perp, lm_cov[..., :2, :2], perp
-            )
+            var_perp = gaussian.quad_form(lm_cov[..., :2, :2], perp)
             std = jnp.maximum(3.0 * jnp.sqrt(jnp.maximum(var_perp, 0.0)), 0.2)
         else:
             std = jnp.full_like(diameter, 0.2)

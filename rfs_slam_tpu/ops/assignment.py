@@ -75,9 +75,8 @@ def _hungarian_uv(cost: jax.Array):
         def body(st):
             minv, used, way, (u, v), j0, p_, it = st
             # all updates keyed by the per-instance scalar j0 are written as
-            # elementwise one-hot selects: under vmap, .at[j0].set lowers to
-            # a batched scatter that TPU executes serially per lane (measured
-            # ~50 s per murty call at MH shapes before this change)
+            # elementwise one-hot selects, so the vmapped loop body stays a
+            # fused elementwise program (no batched scatter)
             used = used | (rows_n1 == j0)
             i0 = p_[j0]
             cols = jnp.arange(n + 1)
@@ -89,9 +88,8 @@ def _hungarian_uv(cost: jax.Array):
             delta_candidates = jnp.where(used, INF, minv)
             j1 = jnp.argmin(delta_candidates).astype(jnp.int32)
             delta = delta_candidates[j1]
-            # u[p_[j]] += delta for used j, as a one-hot multiply-reduce —
-            # a batched scatter-add here lowers to a serialized per-lane
-            # update under vmap on TPU and dominated murty's runtime
+            # u[p_[j]] += delta for used j, as a one-hot multiply-reduce
+            # (no batched scatter-add under vmap)
             hits = jnp.sum(
                 (p_[None, :] == rows_n1[:, None]) & used[None, :], axis=1
             ).astype(u.dtype)                        # [n+1] rows
@@ -106,10 +104,9 @@ def _hungarian_uv(cost: jax.Array):
 
         # augment along parent links.  BOUND the walk: if the search loop
         # above exited via its iteration cap (f32 potential drift can trip
-        # it on TPU, where fusion order rounds differently than CPU), `way`
-        # may hold a broken or cyclic chain — an unbounded walk then spins
-        # until the device watchdog kills the worker ("TPU kernel fault",
-        # observed on the FastSLAM whole-run scan).  A capped walk degrades
+        # it where fusion order rounds differently), `way` may hold a broken
+        # or cyclic chain, and an unbounded walk would never end.  A capped
+        # walk degrades
         # that pathological row to a possibly suboptimal assignment instead
         # of crashing; exactness on sane inputs is unchanged (the chain
         # length is at most n+1).
@@ -180,11 +177,10 @@ def murty(cost: jax.Array, k: int,
 
     ``child_cap`` (static int) bounds the number of Murty children SOLVED
     per expansion wave: with traced ``real_rows`` the uncapped wave width is
-    ``n - 1`` even though only ~``real_rows`` children are ever valid — on
-    TPU the vmapped Hungarian cost scales with wave width (measured 742 ms
-    vs 35 ms per wave at 31x vs 1x width, MH 2-D sim shapes), so capping
-    the wave at a small static bound is the difference between ~2.4 s and
-    ~0.2 s per MH-FastSLAM murty call.  When the cap binds, children are
+    ``n - 1`` even though only ~``real_rows`` children are ever valid, and
+    the vmapped Hungarian's cost scales with wave width (every lane waits
+    for the slowest), so a small static bound cuts the MH-FastSLAM murty
+    call by about the ratio of the widths.  When the cap binds, children are
     kept in DESCENDING DUAL-BOUND order: for the child that bans parent
     assignment (r, c), the parent's optimal duals certify
     ``child_best <= parent_best - min_{j != c} slack[r, j]`` (slack of the
@@ -229,8 +225,7 @@ def murty(cost: jax.Array, k: int,
     # bans as a COMPACT list of at most k entries (ban_r, ban_c, ban_aug) —
     # a Murty child adds exactly one ban to its parent and tree depth is
     # bounded by k, so a dense [pool, n, n] ban cube (83 MB at FastSLAM
-    # bench shapes, and implicated in a TPU worker fault on the
-    # murty-in-scan program) is never needed.  ban_aug marks the reference's
+    # bench shapes) is never needed.  ban_aug marks the reference's
     # augmented-column widening (MurtyAlgorithm.cpp:255-262): ban the row
     # from EVERY column >= nC.
     forced0 = jnp.full((pool, n), -1, jnp.int32)
@@ -292,8 +287,7 @@ def murty(cost: jax.Array, k: int,
         out_sols = out_sols.at[t].set(jnp.where(ok, best_sol, 0))
         out_scores = out_scores.at[t].set(jnp.where(ok, best_score, -jnp.inf))
         out_valid = out_valid.at[t].set(ok)
-        # per-instance scalar index -> one-hot select (batched scatters
-        # serialize under vmap on TPU)
+        # per-instance scalar index -> one-hot select (no batched scatter)
         active = active & (jnp.arange(pool) != best)
         n_parent_bans = jnp.sum(ban_r[best] >= 0).astype(jnp.int32)
         ban_slot = jnp.minimum(n_parent_bans, k - 1)
@@ -653,7 +647,7 @@ def matrix_permanent(a: jax.Array) -> jax.Array:
     n = a.shape[-1]
     subsets = jnp.arange(1, 1 << n)
     bits = ((subsets[:, None] >> jnp.arange(n)[None, :]) & 1).astype(a.dtype)
-    row_sums = bits @ a.T                       # [2^n - 1, n]
+    row_sums = jnp.matmul(bits, a.T, precision=jax.lax.Precision.HIGHEST)
     prods = jnp.prod(row_sums, axis=-1)
     signs = jnp.where((n - jnp.sum(bits, axis=-1)) % 2 == 0, 1.0, -1.0)
     return jnp.sum(signs * prods)

@@ -15,9 +15,9 @@ corrected against the whole ``[Z]`` measurement batch in one shot:
   Gaussian likelihood, and squared Mahalanobis distance.
 
 Everything runs in the plane-major layout of :mod:`rfs_slam_tpu.core.planar`:
-the landmark axis M fills the TPU lane dimension and the whole kernel is one
-fused elementwise program (measured ~45x faster than the ``[..., D, D]``
-stacked layout).  All "abort update" conditions of the reference become masks
+the landmark axis M is innermost and the whole kernel is one fused
+elementwise program rather than batches of tiny ``[..., D, D]`` matrix
+ops.  All "abort update" conditions of the reference become masks
 in the returned ``valid`` array: invalid expected measurement (measure()
 returning false), innovation-gate failures, and the NaN-likelihood guard
 (KalmanFilter.hpp:253-254).
@@ -30,9 +30,8 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
-from rfs_slam_tpu.core import gaussian, planar
+from rfs_slam_tpu.core import gaussian, planar, struct
 
 
 class InnovationGates(struct.PyTreeNode):

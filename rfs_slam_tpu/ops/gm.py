@@ -28,6 +28,9 @@ from rfs_slam_tpu.core import planar
 from rfs_slam_tpu.core.state import GMState
 
 _BIG = jnp.inf
+# one-hot products must reproduce their operand exactly: float32 at full
+# precision (a default-precision f32 dot may run in TF32 on the GPU)
+_EXACT = jax.lax.Precision.HIGHEST
 
 
 def prune(gm: GMState, threshold) -> GMState:
@@ -38,8 +41,7 @@ def prune(gm: GMState, threshold) -> GMState:
 def take_slots(gm: GMState, idx: jax.Array) -> GMState:
     """Per-particle slot gather: ``idx[P, K]`` -> GMState with capacity K.
 
-    Uses the one-hot multiply-reduce of :func:`planar.take_lane` — the slot
-    axis is the TPU lane axis, where real gathers are slow.
+    Uses the one-hot multiply-reduce of :func:`planar.take_lane`.
     """
     oh = planar.onehot(idx, gm.capacity, gm.w.dtype)        # [P, K, M]
     take_pm = lambda a: planar.take_lane(a, oh)
@@ -122,11 +124,11 @@ def replace_weakest(gm: GMState, mean, cov, w, alive,
 
     def insert_pm(old, new):
         return (jnp.where(keep, old, 0.0)
-                + jnp.einsum("pkm,pk->pm", oh_v, new))
+                + jnp.einsum("pkm,pk->pm", oh_v, new, precision=_EXACT))
 
     def insert_pl(old, new):
         return (jnp.where(keep[None], old, 0.0)
-                + jnp.einsum("pkm,xpk->xpm", oh_v, new))
+                + jnp.einsum("pkm,xpk->xpm", oh_v, new, precision=_EXACT))
 
     alive_f = alive.astype(gm.w.dtype)
     return GMState(
@@ -208,8 +210,7 @@ def _merge_pass(gm: GMState, t2, f_inflation):
     new_cov = jnp.where(okD, Sm, gm.cov)
     new_w = jnp.where(ok, wm, gm.w)
     new_w_prev = jnp.where(ok, 0.0, gm.w_prev)
-    # kill merged-away j slots (one-hot reduce; a batched scatter here
-    # serializes on TPU — see planar.put_lane)
+    # kill merged-away j slots (one-hot reduce)
     merged_j = jnp.any(
         (j_safe[:, :, None] == idx[None, None, :]) & ok[:, :, None], axis=1
     )
@@ -221,9 +222,7 @@ def _merge_pass(gm: GMState, t2, f_inflation):
     )
 
 
-def merge(gm: GMState, threshold, f_inflation, max_passes: int = 8,
-          impl: str | None = None,
-          fixed_passes: int | None = None) -> GMState:
+def merge(gm: GMState, threshold, f_inflation, max_passes: int = 8) -> GMState:
     """Merge until fixed point (bounded passes).
 
     Reference: GaussianMixture.hpp:394-416 (O(M^2) greedy in-order scan —
@@ -232,75 +231,19 @@ def merge(gm: GMState, threshold, f_inflation, max_passes: int = 8,
     entry to reproduce that: the pass's lowest-index-first pair claiming is
     slot-order dependent, and unsorted entry measurably degrades the filter
     (bench median pose error 0.03 -> 0.17 m).
-    ``impl``: "pallas" | "xla" | None (auto: the Pallas kernel on TPU for 2-D
-    mixtures with lane-aligned capacity).
     """
     gm = compact(gm, gm.capacity)
-    if impl is None:
-        default_dev = jax.config.jax_default_device
-        platform = (default_dev.platform if default_dev is not None
-                    else jax.default_backend())
-        # AUTO selects Pallas for D=2 only.  The D=3 kernel (merge3d) is a
-        # measured REJECT as the VP default: standalone it is 2.4x the XLA
-        # merge (2.62 vs 6.34 ms at the VP probe state) but in-context the
-        # full frame ties (13.25 vs 13.16 ms) and END-TO-END the full VP
-        # stream came out slower AND at a worse operating point (92.5 fps /
-        # 6.88 m vs 115.6 fps / 3.74 m RMSE, round-5 A/B) — the Mosaic-vs-
-        # XLA f32 arithmetic difference butterflies the chaotic trajectory.
-        # Available explicitly via impl="pallas".
-        use_pallas = (
-            gm.dim == 2 and gm.capacity % 128 == 0 and platform == "tpu"
-        )
-    else:
-        use_pallas = impl == "pallas"
-
     t2 = threshold * threshold
 
-    def xla_fixpoint(g):
-        def cond(carry):
-            _, n, it = carry
-            return (n > 0) & (it < max_passes)
+    def cond(carry):
+        _, n, it = carry
+        return (n > 0) & (it < max_passes)
 
-        def body(carry):
-            gg, _, it = carry
-            gg, n = _merge_pass(gg, t2, f_inflation)
-            return gg, n, it + 1
+    def body(carry):
+        gg, _, it = carry
+        gg, n = _merge_pass(gg, t2, f_inflation)
+        return gg, n, it + 1
 
-        g1, n1 = _merge_pass(g, t2, f_inflation)
-        out, _, _ = jax.lax.while_loop(cond, body, (g1, n1, jnp.int32(1)))
-        return out
-
-    if use_pallas:
-        if gm.dim == 3:
-            from rfs_slam_tpu.ops.pallas.merge3d import merge3d as merge_nd
-        else:
-            from rfs_slam_tpu.ops.pallas.merge2d import merge2d as merge_nd
-
-        # Absorber-tier dispatch: compact() above sorted alive slots to the
-        # front, so a kernel whose pair-search i-axis covers only the first
-        # AK slots is BIT-EXACT whenever max alive count <= AK — and its
-        # per-pass cube work scales with AK.  Mid-run maps typically fill
-        # well under half the capacity, so the common case runs the cheap
-        # tier; lax.switch picks per call at runtime.  Tiers whose
-        # [8, AK, N] pass cubes would exceed the ~16 MB VMEM (Mosaic
-        # requires the particle block to be a multiple of 8, so the block
-        # cannot shrink below 8) fall back to the XLA fixpoint — at large
-        # capacities the Pallas kernel covers the common partially-full
-        # maps and XLA the rare overfull ones.
-        tiers = sorted({max(32, gm.capacity // 4),
-                        max(64, gm.capacity // 2),
-                        max(96, 3 * gm.capacity // 4), gm.capacity})
-        n_alive_max = jnp.max(jnp.sum(gm.alive, axis=1))
-        idx = sum(jnp.int32(n_alive_max > t) for t in tiers[:-1])
-
-        def make_branch(ak):
-            vmem_est = 5 * 8 * ak * gm.capacity * 4  # ~5 live f32 cubes
-            if vmem_est > 10 * 1024 * 1024:
-                return xla_fixpoint
-            return lambda g: merge_nd(g, threshold, f_inflation,
-                                      max_passes=max_passes,
-                                      fixed_passes=fixed_passes, ak=ak)
-
-        return jax.lax.switch(idx, [make_branch(ak) for ak in tiers], gm)
-
-    return xla_fixpoint(gm)
+    g1, n1 = _merge_pass(gm, t2, f_inflation)
+    out, _, _ = jax.lax.while_loop(cond, body, (g1, n1, jnp.int32(1)))
+    return out

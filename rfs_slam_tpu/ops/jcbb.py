@@ -4,9 +4,9 @@ Reference: JCBB.hpp:124-208 (interpretation-tree search, :344-520) with
 incremental joint-innovation-covariance inverse via block updates
 (JCBB.hpp:442-484) and chi-square gating (boost::math quantile, :463-467).
 No reference executable uses JCBB (README.md:153-154) — it is a library
-feature; we provide the same capability as a batched TPU op.
+feature; we provide the same capability as a batched array op.
 
-TPU mapping: the reference's depth-first branch & bound is replaced by a
+Mapping: the reference's depth-first branch & bound is replaced by a
 **beam search over the interpretation tree** — measurements are processed in
 sequence with `lax.scan`; each partial hypothesis assigns the current
 measurement to an unused landmark or to "none" (clutter/missed), every
@@ -26,6 +26,8 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
+
+_HI = jax.lax.Precision.HIGHEST  # small f32 products, never TF32
 
 
 def chi2_quantile(p, df):
@@ -112,12 +114,15 @@ def jcbb(
         # Schur update: md2_new = md2 + (nu_n - C K nu_o)^T W (nu_n - C K nu_o)
         # with W = inv(S_new - C K C^T)
         K = kinv * (sel[:, :, None] & sel[:, None, :])      # zero padding
-        CK = jnp.einsum("bmdz,bzy->bmdy", C, K)             # [B, M, D, ZD]
-        S_cond = S_new[None] - jnp.einsum("bmdz,bmez->bmde", CK, C)
+        CK = jnp.einsum("bmdz,bzy->bmdy", C, K, precision=_HI)  # [B,M,D,ZD]
+        S_cond = S_new[None] - jnp.einsum("bmdz,bmez->bmde", CK, C,
+                                          precision=_HI)
         S_cond = 0.5 * (S_cond + jnp.swapaxes(S_cond, -1, -2))
         W = jnp.linalg.inv(S_cond + 1e-9 * jnp.eye(D))
-        r = nu_zi[None] - jnp.einsum("bmdz,bz->bmd", CK, nu)  # [B, M, D]
-        dmd2 = jnp.einsum("bmd,bmde,bme->bm", r, W, r)      # [B, M]
+        r = nu_zi[None] - jnp.einsum("bmdz,bz->bmd", CK, nu,
+                                     precision=_HI)         # [B, M, D]
+        dmd2 = jnp.einsum("bmd,bmde,bme->bm", r, W, r,
+                          precision=_HI)                    # [B, M]
 
         n_new = npair[:, None] + 1
         thresh = chi2_quantile(confidence, (n_new * D).astype(jnp.float32))
@@ -155,8 +160,10 @@ def jcbb(
         CK_b = CK[b_idx, m_idx]                             # [B, D, ZD]
         W_b = W[b_idx, m_idx]                               # [B, D, D]
         KCT = jnp.swapaxes(CK_b, -1, -2)                    # [B, ZD, D] = K C^T
-        upd_oo = K_b + jnp.einsum("bzd,bde,bye->bzy", KCT, W_b, KCT)
-        upd_on = -jnp.einsum("bzd,bde->bze", KCT, W_b)      # [B, ZD, D]
+        upd_oo = K_b + jnp.einsum("bzd,bde,bye->bzy", KCT, W_b, KCT,
+                                  precision=_HI)
+        upd_on = -jnp.einsum("bzd,bde->bze", KCT, W_b,
+                             precision=_HI)                 # [B, ZD, D]
         kinv_n = upd_oo
         kinv_n = jax.lax.dynamic_update_slice(
             kinv_n, upd_on, (0, 0, slot))

@@ -73,7 +73,7 @@ def maybe_resample(
 def gather_particles(tree, ancestors: jax.Array):
     """Gather every per-particle array (leading axis P) by ancestor index.
 
-    The TPU equivalent of ``Particle::copy()``'s deep map copy
+    The equivalent of ``Particle::copy()``'s deep map copy
     (ParticleFilter.hpp:446-479): one gather covering poses and the full map
     SoA.  Containers with plane-major storage (GMState, BirthCandidates)
     expose ``gather_p`` and are gathered along their own particle axis.

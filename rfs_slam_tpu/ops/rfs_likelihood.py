@@ -12,7 +12,7 @@ components and, per partition, either enumerating all assignments
 algorithm (reference: RBPHDFilter.hpp:821-997, CostMatrix.cpp:92-157,
 MurtyAlgorithm.cpp).
 
-On TPU both paths are replaced by one dense subset-sum DP over measurement
+Here both paths are replaced by one dense subset-sum DP over measurement
 columns, which computes the FULL sum exactly in O(E * 2^Zd * Zd) fully
 vectorized work (no partitioning needed — the sum factorizes over connected
 components automatically).  This is *more* exact than the reference's
@@ -73,7 +73,7 @@ def rfs_log_likelihood(
     # active columns NOT in the DP contribute their clutter factor exactly
     # (they have no gated landmark, or were truncated — reference analog:
     # zero partitions and Murty truncation)
-    # one-hot reduce, not a batched scatter (which serializes on TPU)
+    # one-hot reduce, not a batched scatter
     in_dp = jnp.any(
         (sel_idx[:, :, None] == jnp.arange(Z)) & sel_valid[:, :, None], axis=1
     )

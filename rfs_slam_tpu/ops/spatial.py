@@ -5,14 +5,13 @@ Reference: ``SpatialIndexTree`` / ``SpatialIndexBox`` quadtree-octree
 remove / box-query / closest-point.  The reference filters never use it
 (SURVEY.md section 2.4) — it is an acceleration-structure library feature.
 
-TPU mapping: pointer trees are hostile to XLA, so the index is a **uniform
+Mapping: pointer trees are hostile to XLA, so the index is a **uniform
 grid with sorted buckets** — the idiomatic array equivalent:
 
-* build  = cell-id per point + one argsort + searchsorted offsets (all
-  MXU/VPU-friendly; rebuilds are cheap enough to replace insert/remove);
+* build  = cell-id per point + one argsort + searchsorted offsets (dense
+  array work; rebuilds are cheap enough to replace insert/remove);
 * box query = vectorized membership mask + top_k compaction (O(N) but one
-  fused vector pass — faster than tree traversal on TPU for the N this
-  library sees);
+  fused vector pass instead of a data-dependent tree traversal);
 * nearest = ring search over grid buckets (exact when the true neighbor
   lies within ``n_rings`` cells; widen rings or shrink cells otherwise).
 """

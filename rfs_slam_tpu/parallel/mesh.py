@@ -1,8 +1,8 @@
 """Device mesh + particle-axis sharding.
 
 The reference parallelizes over particles with OpenMP threads in shared
-memory (reference: RBPHDFilter.hpp:469-520, CMakeLists.txt:38-46).  The TPU
-equivalent shards the particle axis of every state array over a 1-D
+memory (reference: RBPHDFilter.hpp:469-520, CMakeLists.txt:38-46).  The
+equivalent here shards the particle axis of every state array over a 1-D
 ``jax.sharding.Mesh``; all per-particle phases are embarrassingly parallel,
 and XLA GSPMD inserts the only two collectives the algorithm needs:
 
@@ -11,8 +11,8 @@ and XLA GSPMD inserts the only two collectives the algorithm needs:
 * resampling: the ancestor gather (all-to-all) when particles migrate
   between shards (ParticleFilter.hpp:446-479's deep copies).
 
-Multi-host: call :func:`init_distributed` first (jax.distributed), then the
-same code runs with ICI collectives within a slice and DCN across slices.
+Multi-process: call :func:`init_distributed` first (jax.distributed), then
+the same code runs with the collectives spanning every process's devices.
 """
 
 from __future__ import annotations

@@ -1,12 +1,11 @@
 """Checkpoint / resume for filter state.
 
 The reference has NO checkpointing (SURVEY.md section 5 — runs restart from
-scratch); this is a required robustness addition for long multi-host TPU
-runs.  A snapshot is the full filter-state pytree (particles, GM SoA
-arrays, RNG key) plus the step index, serialized with
-``flax.serialization`` and written atomically (tmp + rename), with
-``keep``-deep rotation.  Restore returns the pytree with the saved dtypes /
-shapes re-validated against a template state.
+scratch); this is a robustness addition for long runs.  A snapshot is the
+step index plus every leaf of the filter-state pytree (particles, GM SoA
+arrays, RNG key), stored in order with ``np.savez`` and written atomically
+(tmp + rename), with ``keep``-deep rotation.  Restore rebuilds the pytree
+from a template state, re-validating each leaf's shape and dtype.
 """
 
 from __future__ import annotations
@@ -16,20 +15,19 @@ import re
 
 import jax
 import numpy as np
-from flax import serialization
 
-_CKPT_RE = re.compile(r"^ckpt_(\d+)\.msgpack$")
+_CKPT_RE = re.compile(r"^ckpt_(\d+)\.npz$")
 
 
 def save(ckpt_dir: str, step: int, state, keep: int = 3) -> str:
     """Write an atomic snapshot; returns the file path."""
     os.makedirs(ckpt_dir, exist_ok=True)
-    host_state = jax.tree_util.tree_map(np.asarray, state)
-    payload = serialization.to_bytes({"step": step, "state": host_state})
-    path = os.path.join(ckpt_dir, f"ckpt_{step}.msgpack")
+    leaves = jax.tree_util.tree_leaves(state)
+    path = os.path.join(ckpt_dir, f"ckpt_{step}.npz")
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
-        f.write(payload)
+        np.savez(f, step=np.int64(step),
+                 **{f"leaf_{i}": np.asarray(x) for i, x in enumerate(leaves)})
         f.flush()
         os.fsync(f.fileno())
     os.replace(tmp, path)
@@ -49,22 +47,29 @@ def latest_step(ckpt_dir: str) -> int | None:
 def restore(ckpt_dir: str, template_state, step: int | None = None):
     """Load a snapshot into the structure of ``template_state``.
 
-    Returns ``(step, state)``.  Raises FileNotFoundError if absent.
+    Returns ``(step, state)``.  Raises FileNotFoundError if absent and
+    ValueError if the snapshot does not match the template.
     """
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {ckpt_dir}")
-    path = os.path.join(ckpt_dir, f"ckpt_{step}.msgpack")
-    with open(path, "rb") as f:
-        payload = f.read()
-    template = {"step": 0,
-                "state": jax.tree_util.tree_map(np.asarray, template_state)}
-    data = serialization.from_bytes(template, payload)
-    state = jax.tree_util.tree_map(
-        lambda t, v: jax.numpy.asarray(v, getattr(t, "dtype", None)),
-        template_state, data["state"])
-    return int(data["step"]), state
+    path = os.path.join(ckpt_dir, f"ckpt_{step}.npz")
+    t_leaves, treedef = jax.tree_util.tree_flatten(template_state)
+    with np.load(path) as data:
+        n = len(data.files) - 1
+        if n != len(t_leaves):
+            raise ValueError(f"{path}: {n} leaves, template has "
+                             f"{len(t_leaves)}")
+        leaves = []
+        for i, t in enumerate(t_leaves):
+            v = data[f"leaf_{i}"]
+            if v.shape != np.shape(t):
+                raise ValueError(f"{path}: leaf {i} has shape {v.shape}, "
+                                 f"template {np.shape(t)}")
+            leaves.append(jax.numpy.asarray(v, getattr(t, "dtype", None)))
+        saved_step = int(data["step"])
+    return saved_step, jax.tree_util.tree_unflatten(treedef, leaves)
 
 
 def _rotate(ckpt_dir: str, keep: int) -> None:

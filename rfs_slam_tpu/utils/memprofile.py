@@ -1,7 +1,7 @@
 """Host + device memory probes.
 
 Reference: ``MemProfile::get{Peak,Current}RSS`` (include/misc/MemProfile.hpp:
-33-52, src/misc/memProfile.cpp).  Adds the TPU-side HBM numbers from
+33-52, src/misc/memProfile.cpp).  Adds the device memory numbers from
 ``Device.memory_stats()`` which the reference (CPU-only) has no analog for.
 """
 

@@ -4,7 +4,7 @@ Reference: per-phase boost cpu_timers in the filters (RBPHDFilter.hpp:278-284,
 Timer.hpp:42-75) exposed via ``getTimingInfo()`` (:1219-1232) and logged to
 ``timing.dat`` (rbphdslam2dSim.cpp:654-732).
 
-On TPU the whole timestep is ONE fused jitted program, so phases cannot be
+On the device the whole timestep is ONE jitted program, so phases cannot be
 timed inside the production scan without breaking fusion.  Instead
 :func:`profile_phases` times each phase as its own jitted call
 (``block_until_ready`` wall clocks, warm-cache, ``reps`` repetitions) —
@@ -24,7 +24,7 @@ class PhaseTimer:
 
     ``cpu`` is this process's CPU time (``time.process_time``): for
     device-bound phases it measures dispatch/host overhead, NOT device work
-    — the honest TPU analog of the reference's boost cpu_timer columns
+    — the honest device-side analog of the reference's boost cpu_timer columns
     (Timer.hpp:42-75), documented as such in timing.dat.
     """
 

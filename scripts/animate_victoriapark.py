@@ -8,7 +8,7 @@ consuming trajectory.dat / particlePose.dat / landmarkEst.dat
 Usage::
 
     python scripts/animate_victoriapark.py LOGDIR \
-        [--gps /root/reference/data/VictoriaPark/gps.dat] [--save out.mp4]
+        --gps <VictoriaPark dataset dir>/gps.dat [--save out.mp4]
 """
 
 import argparse
@@ -23,7 +23,7 @@ from matplotlib import animation
 def main():
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("logdir")
-    ap.add_argument("--gps", default="/root/reference/data/VictoriaPark/gps.dat")
+    ap.add_argument("--gps", required=True, help="the dataset's gps.dat")
     ap.add_argument("--save", default=None)
     ap.add_argument("--stride", type=int, default=5)
     ap.add_argument("--fps", type=int, default=25)

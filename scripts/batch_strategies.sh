@@ -1,5 +1,5 @@
 #!/usr/bin/env bash
-# Strategy-variant regression rows — the TPU equivalent of the reference's
+# Strategy-variant regression rows — the equivalent of the reference's
 # batchSim_rbphdslam_{emptyStrat,singleStrat,clusterProc}.bash: sed the
 # weighting-strategy key into a copy of the reference XML (exactly as the
 # reference scripts do, batchSim_rbphdslam_emptyStrat.bash:25) and run the
@@ -8,10 +8,10 @@
 # Usage: scripts/batch_strategies.sh [out.dat] [steps] [seeds]
 set -euo pipefail
 cd "$(dirname "$0")/.."
-OUT=${1:-results/batch_rbphd_strategies_r5.dat}
+OUT=${1:-batch_rbphd_strategies.dat}
 STEPS=${2:-1500}
 SEEDS=${3:-3}
-SRC=/root/reference/cfg/rbphdslam2dSim.xml
+SRC=cfg/rbphdslam2dSim.xml
 TMP=$(mktemp -d)
 
 sed -e "s/<nEvalPt>.*<\/nEvalPt>/<nEvalPt>0<\/nEvalPt>/" \

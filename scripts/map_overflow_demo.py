@@ -4,11 +4,10 @@ SURVEY.md section 2.8 row 4's design justification is that the map axis
 pays when a single particle's map outgrows one device: this script exhibits
 that concretely.
 
-Mode ``tpu`` (run on the real chip): AOT-compile the full RB-PHD update
-step at a map capacity chosen so the [P, Z, M] update cubes + O(M^2) merge
-gate exceed the single chip's 16 GB HBM; print the compiler's own memory
-analysis (temp bytes), then attempt one execution and report the
-RESOURCE_EXHAUSTED.
+Mode ``gpu`` (run on one card): AOT-compile the full RB-PHD update step at
+a map capacity chosen so the [P, Z, M] update cubes + O(M^2) merge gate
+approach or exceed the card's memory; print the compiler's own memory
+analysis (temp bytes), then attempt one execution and report the outcome.
 
 Mode ``mesh`` (runs anywhere; use the 8-virtual-device CPU mesh):
 execute the SAME shapes sharded over a 2 x 4 particles x map mesh
@@ -17,8 +16,8 @@ ms/step — the program a single chip cannot hold, running under GSPMD.
 
 Usage::
 
-    # on TPU (expects out-of-memory at these shapes)
-    python scripts/map_overflow_demo.py tpu --particles 64 --map 8192
+    # on one GPU (raise --map until the single card runs out of memory)
+    python scripts/map_overflow_demo.py gpu --particles 64 --map 8192
 
     # virtual 8-device mesh (executes)
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
@@ -43,17 +42,8 @@ from rfs_slam_tpu.parallel import mesh as mesh_lib
 
 
 def build(p, m, zc):
-    import dataclasses
-
-    filt = ge._build(n_particles=p, map_capacity=m, z_capacity=zc,
+    return ge._build(n_particles=p, map_capacity=m, z_capacity=zc,
                      new_capacity=32, eval_capacity=8, z_dp_max=6)
-    # XLA paths: the fused Pallas map-update kernel is VMEM-blocked for
-    # bench-scale M, and the Pallas merge would hit the VMEM wall rather
-    # than HBM; the overflow question is about the general path's HBM
-    # footprint
-    filt.cfg = dataclasses.replace(filt.cfg, fused_map_update="off",
-                                   merge_impl="xla")
-    return filt
 
 
 def analytic(p, m, zc):
@@ -67,7 +57,7 @@ def analytic(p, m, zc):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("mode", choices=["tpu", "mesh"])
+    ap.add_argument("mode", choices=["gpu", "mesh"])
     ap.add_argument("--particles", type=int, default=64)
     ap.add_argument("--map", type=int, default=8192)
     ap.add_argument("--zc", type=int, default=16)
@@ -81,7 +71,7 @@ def main():
         state = filt.predict(state, odo, 0.1)
         return filt.update(state, z, z_mask)
 
-    if args.mode == "tpu":
+    if args.mode == "gpu":
         state, odo, z, z_mask = ge._example_inputs(filt, jax.random.PRNGKey(0))
         t0 = time.time()
         lowered = jax.jit(step).lower(state, odo, z, z_mask)

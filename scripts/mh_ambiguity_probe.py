@@ -18,8 +18,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from rfs_slam_tpu.utils import cache
 cache.enable()
-from rfs_slam_tpu.utils.warmup import warm_transfers
-warm_transfers()
 
 import jax
 import jax.numpy as jnp
@@ -27,10 +25,10 @@ import numpy as np
 
 from rfs_slam_tpu.apps.fastslam2dsim import build_filter_from_xml
 from rfs_slam_tpu.io import sim2d
-from rfs_slam_tpu.io.xmlconfig import XmlConfig, load_sim2d
+from rfs_slam_tpu.io.xmlconfig import XmlConfig, default_cfg, load_sim2d
 from rfs_slam_tpu.ops.assignment import ambiguous_lanes
 
-CFG = os.environ.get("MH_CFG", "/root/reference/cfg/mhfastslam2dSim.xml")
+CFG = os.environ.get("MH_CFG", default_cfg("mhfastslam2dSim.xml"))
 STEPS = int(os.environ.get("MH_PROBE_STEPS", "400"))
 CHUNK = 50
 

@@ -1,14 +1,12 @@
-"""Per-phase device timing of the Victoria Park RB-PHD frame (TPU).
+"""Per-phase device timing of the Victoria Park RB-PHD frame.
 
-Round-5 follow-up to scripts/profile_step.py / profile_mh.py: before
-extending the fused Pallas map-update kernel to the VP configuration
-(D=3 measurement, geometry-only-Pd fallback), measure where the VP frame
-time actually goes.  Uses the in-context ablation method (remove one phase,
-keep the rest live) that PERF.md's round-4 analysis validated — standalone
-phase probes under-attribute because XLA dead-code-eliminates whatever a
-probe does not consume.
+Measures where the VP frame time goes (P=100, M=512, Zc=24, D=3) with the
+in-context ablation method (remove one phase, keep the rest live):
+standalone phase probes under-attribute because XLA dead-code-eliminates
+whatever a probe does not consume.
 
-Not a test — a developer tool. Run: python scripts/profile_vp.py [n_warm]
+Not a test — a developer tool.  Run:
+    python scripts/profile_vp.py <VictoriaPark dataset dir> [n_warm]
 """
 import os
 import sys
@@ -18,8 +16,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from rfs_slam_tpu.utils import cache
 cache.enable()
-from rfs_slam_tpu.utils.warmup import warm_transfers
-warm_transfers()
 
 import jax
 import jax.numpy as jnp
@@ -27,21 +23,16 @@ import numpy as np
 
 from rfs_slam_tpu.apps import rbphdslam_victoriapark as app
 from rfs_slam_tpu.io import victoria_park as vp_io
-from rfs_slam_tpu.io.xmlconfig import XmlConfig
+from rfs_slam_tpu.io.xmlconfig import XmlConfig, default_cfg
 import rfs_slam_tpu.ops.gm as gm_module
 
-N_WARM = int(sys.argv[1]) if len(sys.argv) > 1 else 200
+DATA = sys.argv[1]
+N_WARM = int(sys.argv[2]) if len(sys.argv) > 2 else 200
 
-cfg = XmlConfig("/root/reference/cfg/rbphdslam_VictoriaPark.xml")
+cfg = XmlConfig(default_cfg("rbphdslam_VictoriaPark.xml"))
 filt, input_cov, ack = app.build(cfg, z_capacity=24, map_capacity=512,
                                  n_particles=100)
-# VP_MERGE=xla forces the XLA merge (A/B vs the round-5 Pallas merge3d)
-if os.environ.get("VP_MERGE"):
-    import dataclasses
-
-    filt.cfg = dataclasses.replace(filt.cfg,
-                                   merge_impl=os.environ["VP_MERGE"])
-frames = vp_io.load("/root/reference/data/VictoriaPark",
+frames = vp_io.load(DATA,
                     scale_ur=cfg.get("process.ur_scale", 1.0),
                     z_capacity=24, n_messages=N_WARM * 12, ackerman=ack)
 F = len(frames.t)
@@ -71,7 +62,7 @@ inputs = tuple(jnp.asarray(a) for a in (
 state = filt.init_state(jax.random.PRNGKey(0), jnp.zeros(3), dz=3, d=3)
 step = make_step()
 
-# warm to a realistic mid-run state (chunks keep dispatches short)
+# warm to a realistic mid-run state
 C = 64
 t0 = time.perf_counter()
 warm = min(N_WARM, F)
@@ -130,7 +121,6 @@ filt._resample_phase = real_rs
 
 # ---- merge internals at this mid-run state
 from rfs_slam_tpu.ops import gm as gm_ops
-from rfs_slam_tpu.ops.pallas.merge3d import merge3d
 
 mt = filt.cfg.merge_threshold
 mi = filt.cfg.merge_inflation
@@ -151,8 +141,5 @@ def timed_gm(name, fn):
 
 
 timed_gm("gm compact (sort+take_slots) only", lambda g: gm_ops.compact(g, 512))
-timed_gm("merge() auto (compact + tier switch)",
+timed_gm("merge() (compact + fixpoint)",
          lambda g: gm_ops.merge(g, mt, mi))
-timed_gm("merge() forced xla", lambda g: gm_ops.merge(g, mt, mi, impl="xla"))
-timed_gm("merge3d direct ak=128 (pre-compacted)",
-         lambda g: merge3d(gm_ops.compact(g, 512), mt, mi, ak=128))

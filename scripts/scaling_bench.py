@@ -8,13 +8,12 @@ collectives of the filter, SURVEY.md section 2.8).  Efficiency(n) =
 time(1 device) / time(n devices); a perfectly scaling weak workload stays at
 1.0.
 
-On this host only ONE real TPU chip exists, so the harness defaults to the
-virtual CPU mesh (``--xla_force_host_platform_device_count``).  CAVEAT: the
-virtual devices share 2 physical cores, so absolute steps/s SHRINKS with n by
-construction — the meaningful output on this host is the COLLECTIVE SHARE
-column (how much of the step the mesh spends in cross-shard work), which is
-what the 80% target turns on for real multi-chip meshes; the same script run
-on a real slice reports true efficiency.
+Without GPUs the harness runs on the virtual CPU mesh
+(``--xla_force_host_platform_device_count``).  CAVEAT: virtual devices share
+the host's cores, so absolute steps/s SHRINKS with n by construction — the
+meaningful output there is the COLLECTIVE SHARE column (how much of the step
+the mesh spends in cross-shard work); the same script on four GPUs reports
+true efficiency.
 
 Run: JAX_PLATFORMS=cpu python scripts/scaling_bench.py [--devices 1 2 4 8]
 Writes scaling_results.dat in timing.dat-like columns.

@@ -1,10 +1,10 @@
-"""Run the TPU RB-PHD filter on the C++ baseline's EXACT sim data.
+"""Run the RB-PHD filter on the C++ baseline's EXACT sim data.
 
 ``native/baseline --dump <dir>`` writes its generated ground truth, odometry
 and measurement stream; this script replays them through the JAX filter at
 bench configuration and reports the same metric (median best-particle
 position error over steps >= 150).  Removes data-generation RNG differences
-from the TPU-vs-C++ accuracy comparison.
+from the JAX-vs-C++ accuracy comparison.
 
 Run: python scripts/sim_accuracy_check.py [dump_dir] [--cpu]
 """
@@ -16,9 +16,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from rfs_slam_tpu.utils import cache
 
 cache.enable()
-from rfs_slam_tpu.utils.warmup import warm_transfers
 
-warm_transfers()
 
 import jax
 import jax.numpy as jnp
@@ -76,5 +74,5 @@ def run():
 best_poses = run()
 err = np.linalg.norm(best_poses[:, :2] - gt[1:, :2], axis=1)
 print(f"median_pose_err_m(steps>=150) = {np.median(err[150:]):.4f}  "
-      f"(C++ baseline on same data: see native/baseline_result.json)")
+      f"(C++ baseline on same data: run native/baseline --dump)")
 print(f"p90 = {np.percentile(err[150:], 90):.4f}  max = {err[150:].max():.4f}")

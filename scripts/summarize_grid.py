@@ -1,6 +1,6 @@
 """Summarize batchsim .dat results into RESULTS.md-style tables.
 
-Usage: python scripts/summarize_grid.py results/batch_rbphd_r4.dat
+Usage: python scripts/summarize_grid.py batchResults.dat
 Emits one markdown table of median (max) tail pose error and one of median
 map COLA, rows = P_D, cols = clutter.  Columns autodetected from the file
 (6-column round-3 files lack mapCola).

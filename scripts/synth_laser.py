@@ -1,6 +1,6 @@
 """Synthesize a LASER.txt raw-scan stream consistent with measurements.dat.
 
-The repository's Victoria Park dataset copy ships WITHOUT the raw 361-beam
+The usual copy of the Victoria Park dataset ships WITHOUT the raw 361-beam
 lidar file, so the measurement model's scan-dependent Pd path — the
 trickiest code in MeasurementModel_VictoriaPark (reference:
 MeasurementModel_VictoriaPark.cpp:202-265, beam-count Pd table lookup) —
@@ -19,8 +19,8 @@ angle k * (2 pi / 720) in the measurement frame (models/victoria_park.py).
 
 Usage::
 
-    python scripts/synth_laser.py --data /root/reference/data/VictoriaPark \
-        --out /tmp/vp_scan_data [--messages 2000] [--obstruct 0.02]
+    python scripts/synth_laser.py --data <VictoriaPark dataset dir> \
+        --out <new dir> [--messages 2000] [--obstruct 0.02]
 
 Creates ``out`` with symlinks to the real dataset files plus the synthetic
 ``LASER.txt``; run the VP apps with ``--data <out>``.
@@ -79,8 +79,8 @@ def synthesize(data_dir: str, out_dir: str, messages: int = 0,
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--data", default="/root/reference/data/VictoriaPark")
-    ap.add_argument("--out", default="/tmp/vp_scan_data")
+    ap.add_argument("--data", required=True)
+    ap.add_argument("--out", required=True)
     ap.add_argument("--messages", type=int, default=0,
                     help="only synthesize scans for the first N sensor "
                          "messages (0 = all)")

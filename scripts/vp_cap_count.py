@@ -10,7 +10,7 @@ cap actually binds after the round-5 dual-bound window pruning.
 
 Run after an MH VP run with --ckpt-keep 0:
 
-    python scripts/vp_cap_count.py /tmp/vp_mh_ckpt [cap]
+    python scripts/vp_cap_count.py <ckpt_dir> <VictoriaPark dataset dir> [cap]
 """
 import os
 import sys
@@ -19,8 +19,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from rfs_slam_tpu.utils import cache
 cache.enable()
-from rfs_slam_tpu.utils.warmup import warm_transfers
-warm_transfers()
 
 import jax
 import jax.numpy as jnp
@@ -28,17 +26,17 @@ import numpy as np
 
 from rfs_slam_tpu.apps import fastslam_victoriapark as fvp
 from rfs_slam_tpu.io import victoria_park as vp_io
-from rfs_slam_tpu.io.xmlconfig import XmlConfig
+from rfs_slam_tpu.io.xmlconfig import XmlConfig, default_cfg
 from rfs_slam_tpu.ops.assignment import murty
 from rfs_slam_tpu.utils import checkpoint
 
-ckpt_dir = sys.argv[1] if len(sys.argv) > 1 else "/tmp/vp_mh_ckpt"
-cap = int(sys.argv[2]) if len(sys.argv) > 2 else 6
+ckpt_dir, data_dir = sys.argv[1], sys.argv[2]
+cap = int(sys.argv[3]) if len(sys.argv) > 3 else 6
 
-cfg = XmlConfig("/root/reference/cfg/mhfastslam_VictoriaPark.xml")
+cfg = XmlConfig(default_cfg("mhfastslam_VictoriaPark.xml"))
 filt, input_cov, ack = fvp.build(cfg, z_capacity=24, map_capacity=512,
                                  n_particles=None)
-frames = vp_io.load("/root/reference/data/VictoriaPark",
+frames = vp_io.load(data_dir,
                     scale_ur=cfg.get("process.ur_scale", 1.0),
                     z_capacity=24, ackerman=ack)
 H = filt.cfg.max_hypotheses
@@ -46,8 +44,8 @@ window = filt.cfg.max_da_loglik_diff
 template = filt.init_state(jax.random.PRNGKey(0), jnp.zeros(3), d=3)
 
 steps = sorted(
-    int(n[5:-8]) for n in os.listdir(ckpt_dir)
-    if n.startswith("ckpt_") and n.endswith(".msgpack"))
+    int(n[5:-4]) for n in os.listdir(ckpt_dir)
+    if n.startswith("ckpt_") and n.endswith(".npz"))
 print(f"{len(steps)} checkpoints in {ckpt_dir}; H={H} window={window} "
       f"cap={cap} NMZ={filt.cfg.nmz_capacity}")
 

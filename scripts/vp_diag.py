@@ -5,7 +5,8 @@ health: effective sample size, best-particle map size, strong-landmark count
 (w >= minWeight, i.e. usable importance-weighting eval points), weight
 spread before resampling, and GPS RMSE of the segment.
 
-Run: python scripts/vp_diag.py [n_messages] [particles]
+Run: python scripts/vp_diag.py <VictoriaPark dataset dir> [n_messages]
+     [particles]
 """
 import os
 import sys
@@ -16,15 +17,16 @@ import numpy as np
 
 from rfs_slam_tpu.apps import rbphdslam_victoriapark as app
 from rfs_slam_tpu.io import victoria_park as vp_io
-from rfs_slam_tpu.io.xmlconfig import XmlConfig
+from rfs_slam_tpu.io.xmlconfig import XmlConfig, default_cfg
 
-n_msgs = int(sys.argv[1]) if len(sys.argv) > 1 else 15000
-n_part = int(sys.argv[2]) if len(sys.argv) > 2 else 100
+data_dir = sys.argv[1]
+n_msgs = int(sys.argv[2]) if len(sys.argv) > 2 else 15000
+n_part = int(sys.argv[3]) if len(sys.argv) > 3 else 100
 
-cfg = XmlConfig("/root/reference/cfg/rbphdslam_VictoriaPark.xml")
+cfg = XmlConfig(default_cfg("rbphdslam_VictoriaPark.xml"))
 filt, input_cov, ack = app.build(cfg, z_capacity=24, map_capacity=512,
                                  n_particles=n_part)
-frames = vp_io.load("/root/reference/data/VictoriaPark",
+frames = vp_io.load(data_dir,
                     scale_ur=cfg.get("process.ur_scale", 1.0),
                     z_capacity=24, n_messages=n_msgs, ackerman=ack)
 F = len(frames.t)

@@ -7,7 +7,8 @@ percentiles, and the first time the error crosses 10 m (the round-4
 divergence signature).  Use on the base run and on every counterfactual
 resume probe.
 
-Run: python scripts/vp_mh_diag.py <ckpt_dir> [--from-frame N]
+Run: python scripts/vp_mh_diag.py <ckpt_dir> <VictoriaPark dataset dir>
+     [--from-frame N]
 """
 import os
 import sys
@@ -20,19 +21,19 @@ from rfs_slam_tpu.apps import _vp_common
 from rfs_slam_tpu.apps.rbphdslam_victoriapark import gps_rmse
 from rfs_slam_tpu.io import logs
 from rfs_slam_tpu.io import victoria_park as vp_io
-from rfs_slam_tpu.io.xmlconfig import XmlConfig
+from rfs_slam_tpu.io.xmlconfig import XmlConfig, default_cfg
 
-ckpt_dir = sys.argv[1]
+ckpt_dir, data_dir = sys.argv[1], sys.argv[2]
 from_frame = 0
 if "--from-frame" in sys.argv:
     from_frame = int(sys.argv[sys.argv.index("--from-frame") + 1])
 
-cfg = XmlConfig("/root/reference/cfg/mhfastslam_VictoriaPark.xml")
+cfg = XmlConfig(default_cfg("mhfastslam_VictoriaPark.xml"))
 ack = (cfg.get("process.AckermanModel.rearWheelOffset", 0.76),
        cfg.get("process.AckermanModel.frontToRearDist", 2.83),
        cfg.get("process.AckermanModel.sensorOffset_x", 3.78),
        cfg.get("process.AckermanModel.sensorOffset_y", 0.5))
-frames = vp_io.load("/root/reference/data/VictoriaPark",
+frames = vp_io.load(data_dir,
                     scale_ur=cfg.get("process.ur_scale", 1.0),
                     z_capacity=24, ackerman=ack)
 F = len(frames.t)

@@ -104,9 +104,9 @@ def test_batchsim_run_one_smoke():
     import dataclasses
 
     from rfs_slam_tpu.apps.batchsim import run_one
-    from rfs_slam_tpu.io.xmlconfig import XmlConfig, load_sim2d
+    from rfs_slam_tpu.io.xmlconfig import XmlConfig, default_cfg, load_sim2d
 
-    cfg = XmlConfig("/root/reference/cfg/rbphdslam2dSim.xml")
+    cfg = XmlConfig(default_cfg("rbphdslam2dSim.xml"))
     sim_cfg = dataclasses.replace(load_sim2d(cfg), timesteps=40,
                                   n_landmarks=8)
     mean_err, final_err, map_err, wall = run_one(

@@ -250,3 +250,75 @@ def test_check_map_integrity():
     bad3 = gm.replace(cov=gm.cov.at[:, 0, 0].set(jnp.asarray([0.1, -0.2, 0.1])))
     ok, rep = check_map_integrity(bad3)
     assert not ok and rep["cov_nonpositive"] == 1
+
+
+# ---------------------------------------------------------------- struct
+def _point_cls():
+    from rfs_slam_tpu.core import struct
+
+    class Point(struct.PyTreeNode):
+        x: jax.Array
+        y: jax.Array = struct.field(default=0.0)
+        tag: str = struct.field(pytree_node=False, default="p")
+
+    return Point
+
+
+def test_struct_replace_and_defaults():
+    Point = _point_cls()
+    p = Point(x=jnp.ones(2))
+    q = p.replace(y=jnp.full(2, 3.0))
+    assert float(p.y) == 0.0 and p.tag == "p"
+    np.testing.assert_array_equal(np.asarray(q.y), [3.0, 3.0])
+    assert q.x is p.x
+    try:
+        p.x = jnp.zeros(2)
+        assert False, "PyTreeNode fields must be frozen"
+    except AttributeError:
+        pass
+
+
+def test_struct_meta_fields_are_static():
+    Point = _point_cls()
+    p = Point(x=jnp.ones(2), tag="a")
+    leaves, treedef = jax.tree_util.tree_flatten(p)
+    assert len(leaves) == 2                   # x, y — tag is metadata
+    assert jax.tree_util.tree_flatten(p.replace(tag="b"))[1] != treedef
+    assert jax.tree_util.tree_unflatten(treedef, leaves).tag == "a"
+
+
+def test_struct_jit_round_trip():
+    Point = _point_cls()
+
+    @jax.jit
+    def f(p):
+        return p.replace(x=p.x * 2.0, y=p.y + 1.0)
+
+    out = f(Point(x=jnp.arange(3.0), y=jnp.asarray(1.0), tag="t"))
+    assert isinstance(out, Point) and out.tag == "t"
+    np.testing.assert_array_equal(np.asarray(out.x), [0.0, 2.0, 4.0])
+    assert float(out.y) == 2.0
+
+
+# ----------------------------------------------------------------- cache
+def test_cache_honours_env_var(tmp_path, monkeypatch):
+    from rfs_slam_tpu.utils import cache
+
+    old = jax.config.jax_compilation_cache_dir
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "c"))
+    try:
+        assert cache.enable() == str(tmp_path / "c")
+        assert jax.config.jax_compilation_cache_dir == str(tmp_path / "c")
+        assert (tmp_path / "c").is_dir()
+    finally:
+        jax.config.update("jax_compilation_cache_dir", old)
+
+
+def test_cache_default_is_checkout_dir(monkeypatch):
+    import os
+
+    from rfs_slam_tpu.utils import cache
+
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert cache.cache_dir() == os.path.join(root, ".jax_cache")

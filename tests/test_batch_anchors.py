@@ -1,7 +1,7 @@
 """Regression-grid anchor cells, short horizon, CPU-runnable.
 
-The committed regression grids (results/batch_*.dat, RESULTS.md) are
-produced on TPU at reference scale; nothing in the suite pinned them, so a
+The regression grids (apps/batchsim.py, RESULTS.md) run at reference scale
+on the accelerator; nothing else in the suite pins them, so a
 hot-path "optimization" that wrecks high-clutter accuracy would pass CI and
 the bench gate (which runs the easy 1e-4-clutter workload).  These anchors
 run 500-step / reduced-particle versions of representative grid cells —

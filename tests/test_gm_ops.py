@@ -1,7 +1,9 @@
 """Tests for Gaussian-mixture maintenance ops (merge/prune/compact/append)."""
 
 import numpy as np
+import jax
 import jax.numpy as jnp
+import pytest
 
 from rfs_slam_tpu.core.state import GMState
 from rfs_slam_tpu.ops import gm as gm_ops
@@ -192,3 +194,99 @@ def test_replace_weakest_more_new_than_capacity(rng):
         np.testing.assert_allclose(
             np.sort(np.asarray(out.w[p])[np.asarray(out.alive[p])]),
             np.sort(np.asarray(ref.w[p])[np.asarray(ref.alive[p])]), rtol=1e-6)
+
+
+# ------------------------------------------------- float64 oracle checks
+def _random_dense_gm(rng, P, M, D, n_alive, spread=3.0):
+    mean = rng.uniform(-spread, spread, size=(P, M, D))
+    A = rng.normal(size=(P, M, D, D)) * 0.3
+    cov = A @ np.swapaxes(A, -1, -2) + 0.2 * np.eye(D)
+    w = rng.uniform(0.05, 1.0, size=(P, M))
+    alive = np.zeros((P, M), bool)
+    for p in range(P):
+        alive[p, rng.choice(M, n_alive, replace=False)] = True
+    return tuple(x.astype(np.float32) if x.dtype != bool else x
+                 for x in (mean, cov, w, 0.5 * w, alive))
+
+
+@pytest.mark.parametrize("D", [2, 3])
+@pytest.mark.parametrize("case", ["match", "no_pairs", "odd_particles",
+                                  "mass_conserved"])
+def test_merge_matches_float64_oracle(rng, D, case):
+    """The XLA merge fixpoint against the float64 greedy-pass oracle
+    (rfs_slam_tpu.oracles.merge): same survivors, same moments."""
+    from rfs_slam_tpu import oracles
+
+    P, M, n_alive, spread = {
+        "match": (4, 32, 20, 3.0),
+        "no_pairs": (3, 16, 8, 300.0),
+        "odd_particles": (5, 24, 16, 3.0),
+        "mass_conserved": (3, 24, 20, 1.5),
+    }[case]
+    mean, cov, w, w_prev, alive = _random_dense_gm(rng, P, M, D, n_alive,
+                                                   spread)
+    g = GMState.from_dense(jnp.asarray(mean), jnp.asarray(cov),
+                           jnp.asarray(w), jnp.asarray(w_prev),
+                           jnp.asarray(alive))
+    out = gm_ops.merge(g, threshold=1.5, f_inflation=1.5)
+    r_mean, r_cov, r_w, r_wp, r_alive = oracles.merge(
+        mean, cov, w, w_prev, alive, 1.5, 1.5)
+    np.testing.assert_array_equal(np.asarray(out.alive), r_alive)
+    a = r_alive
+    np.testing.assert_allclose(np.asarray(out.w)[a], r_w[a], rtol=1e-5)
+    np.testing.assert_allclose(np.asarray(out.w_prev)[a], r_wp[a], rtol=1e-5)
+    np.testing.assert_allclose(np.asarray(out.mean_dense)[a], r_mean[a],
+                               rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(np.asarray(out.cov_dense)[a], r_cov[a],
+                               rtol=1e-3, atol=1e-5)
+    if case == "no_pairs":
+        assert a.sum() == alive.sum()
+    else:
+        assert a.sum() < alive.sum()
+    if case == "mass_conserved":
+        np.testing.assert_allclose(
+            np.where(a, np.asarray(out.w), 0.0).sum(axis=1),
+            np.where(alive, w, 0.0).sum(axis=1), rtol=1e-5)
+
+
+def test_put_lane_bit_exact_vs_scatter(rng):
+    """The one-hot put equals ``.at[].set`` bit for bit (full-precision
+    products; values with all 24 mantissa bits in use)."""
+    from rfs_slam_tpu.core import planar
+
+    P, M, K = 6, 32, 9
+    dst = jnp.asarray(rng.normal(size=(3, P, M)), jnp.float32)
+    idx = jnp.asarray(np.argsort(rng.uniform(size=(P, M)), axis=1)[:, :K],
+                      jnp.int32)
+    src = jnp.asarray(rng.normal(size=(3, P, K)) * 1e3 + 1.0 / 3.0,
+                      jnp.float32)
+    valid = jnp.asarray(rng.uniform(size=(P, K)) < 0.7)
+    got = jax.jit(planar.put_lane)(
+        dst, jnp.broadcast_to(idx, (3, P, K)), src,
+        jnp.broadcast_to(valid, (3, P, K)))
+    rows = jnp.arange(P)[:, None]
+    want = dst.at[:, rows, jnp.where(valid, idx, M)].set(src, mode="drop")
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+
+
+def test_replace_weakest_bit_exact_vs_indexing(rng):
+    """replace_weakest equals the plain-indexing oracle bit for bit."""
+    from rfs_slam_tpu import oracles
+
+    P, M, K, D = 5, 24, 7, 2
+    w = rng.uniform(0.01, 1.0, size=(P, M)).astype(np.float32)
+    g = GMState(mean=jnp.asarray(rng.normal(size=(D, P, M)), jnp.float32),
+                cov=jnp.asarray(rng.uniform(0.1, 1.0, size=(3, P, M)),
+                                jnp.float32),
+                w=jnp.asarray(w), w_prev=jnp.asarray(w / 3.0),
+                alive=jnp.asarray(rng.uniform(size=(P, M)) < 0.6))
+    new = (rng.normal(size=(D, P, K)).astype(np.float32) / 3.0,
+           rng.uniform(0.1, 1.0, size=(3, P, K)).astype(np.float32),
+           rng.uniform(0.01, 1.0, size=(P, K)).astype(np.float32),
+           rng.uniform(size=(P, K)) < 0.7)
+    out = jax.jit(gm_ops.replace_weakest)(g, *map(jnp.asarray, new))
+    ref = oracles.replace_weakest(
+        *map(np.asarray, (g.mean, g.cov, g.w, g.w_prev, g.alive)), *new)
+    for got, want in zip((out.mean, out.cov, out.w, out.w_prev, out.alive),
+                         ref):
+        np.testing.assert_array_equal(np.asarray(got), want)

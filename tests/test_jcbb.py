@@ -4,7 +4,7 @@ The oracle enumerates every injective partial assignment (measurement ->
 landmark or none), applies the same per-level joint chi-square gate as the
 reference's branch & bound (JCBB.hpp:344-520), and picks max pairings with
 minimal joint Mahalanobis distance as tie-break.  With a beam wider than the
-interpretation tree the TPU op must match it exactly.
+interpretation tree the batched op must match it exactly.
 """
 
 import itertools

@@ -1,46 +1,17 @@
 """Oracle test: subset-sum DP vs brute-force matching enumeration.
 
-The oracle enumerates every landmark<->measurement matching like the
-reference's PermutationLexicographic path (RBPHDFilter.hpp:961-988),
-including the reference's zero-partition quirk (rows with no gated
-measurement contribute Pd, not 1-Pd — RBPHDFilter.hpp:905-917).
+The oracle (rfs_slam_tpu.oracles.rfs_log_likelihood) enumerates every
+landmark<->measurement matching like the reference's PermutationLexicographic
+path (RBPHDFilter.hpp:961-988), including the reference's zero-partition
+quirk (rows with no gated measurement contribute Pd, not 1-Pd —
+RBPHDFilter.hpp:905-917).
 """
-
-import itertools
 
 import numpy as np
 import jax.numpy as jnp
 
+from rfs_slam_tpu.oracles import rfs_log_likelihood as brute_force
 from rfs_slam_tpu.ops.rfs_likelihood import rfs_log_likelihood
-
-
-def brute_force(L, pd, clutter, log_clutter_integral):
-    """Sum over all partial matchings of an E x Z table."""
-    E, Z = L.shape
-    row_has_support = L.max(axis=1) > 0
-    total = 0.0
-    cols = list(range(Z))
-    for k in range(min(E, Z) + 1):
-        for rows in itertools.combinations(range(E), k):
-            for cperm in itertools.permutations(cols, k):
-                term = 1.0
-                for r, c in zip(rows, cperm):
-                    term *= L[r, c]
-                if term == 0.0:
-                    continue
-                for r in range(E):
-                    if r not in rows:
-                        # reference quirk: support-less rows multiply by Pd
-                        term *= pd[r] if not row_has_support[r] else (1 - pd[r])
-                for c in range(Z):
-                    if c not in cperm:
-                        term *= clutter[c]
-                total += term
-    # plus the empty matching
-    term = 1.0
-    if min(E, Z) >= 0:
-        pass
-    return np.log(total) - log_clutter_integral
 
 
 def run_case(rng, E, Z, sparsity=0.5):

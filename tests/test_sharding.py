@@ -145,7 +145,8 @@ def test_distributed_two_process_smoke():
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     env = dict(os.environ)
-    env["PYTHONPATH"] = "/root/repo" + os.pathsep + env.get("PYTHONPATH", "")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
     worker = os.path.join(os.path.dirname(__file__), "dist_smoke_worker.py")
     procs = [
         subprocess.Popen([sys.executable, worker, str(pid), str(port)],
